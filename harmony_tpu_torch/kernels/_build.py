@@ -1,0 +1,193 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` for sm_90a,
+all started together, and the objects are linked into ONE shared library
+with a plain C interface, bound with ``ctypes``.  The build runs at first
+use, from the sources in the checkout, into ``harmony_tpu_torch/_build/``
+(git-ignored), and again whenever a source, the shared header, the flags
+or the constants change: the library's name carries their hash.  A failed
+build or launch raises; nothing falls back to a plain version.
+
+The modulus reaches the kernels through a header generated here from
+``ops/_constants.py`` and pre-included (``params_header``); not through
+``-D`` flags, because nvcc splits option values at commas.
+"""
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+from ..ops import _constants as C
+from ..ops.limbs import N_LIMBS
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+SOURCES = (CSRC / "mont_mul.cu", CSRC / "fp_addsub.cu")
+HEADERS = (CSRC / "fp384.cuh",)
+BUILD_DIR = _PKG / "_build"
+
+# p as 12 little-endian words of 32 bits, and -p^-1 mod 2^32
+P_WORDS = tuple((C.P_INT >> (32 * i)) & 0xFFFFFFFF for i in range(12))
+P_INV32 = -pow(C.P_INT, -1, 1 << 32) % (1 << 32)
+
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-Xcompiler", "-fPIC"]
+
+# C entry points: name -> number of tensor pointers before (rows, stream)
+_ENTRY_POINTS = {"harmony_mont_mul": 3, "harmony_fp_add": 3,
+                 "harmony_fp_sub": 3, "harmony_fp_neg": 2}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(cuda_home, "bin", "nvcc")
+
+
+def params_header() -> str:
+    words = ", ".join(f"0x{w:08x}u" for w in P_WORDS)
+    return (f"#define HARMONY_P_WORDS {words}\n"
+            f"#define HARMONY_P_INV32 0x{P_INV32:08x}u\n")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources, flags and constants is
+    built."""
+    digest = hashlib.sha256()
+    for path in SOURCES + HEADERS:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(_FLAGS).encode() + params_header().encode())
+    return BUILD_DIR / f"harmony_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds):
+    """Start every command, then wait for all; raise on the first that
+    failed, with its output."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+    finally:
+        outputs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        so = library_path()
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                header = Path(tmp) / "harmony_params.h"
+                header.write_text(params_header())
+                objs = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
+                _run_all([[_nvcc(), *_FLAGS, "-include", str(header),
+                           "-c", "-o", str(obj), str(src)]
+                          for src, obj in zip(SOURCES, objs)])
+                linked = Path(tmp) / so.name
+                _run_all([[_nvcc(), *_FLAGS, "-shared", "-o", str(linked),
+                           *map(str, objs)]])
+                os.replace(linked, so)
+        lib = ctypes.CDLL(str(so))
+        for name, n_ptrs in _ENTRY_POINTS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = ([ctypes.c_void_p] * n_ptrs
+                           + [ctypes.c_int64, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+# The launch path below runs some 26,000 times per quorum check, and its
+# host time is most of the check's: it is written out per arity and asks
+# each tensor only what it must.
+
+
+def _refuse(entry: str, *xs: torch.Tensor) -> None:
+    """Raise the error that fits operands the kernel does not take."""
+    if any(x.dtype is not torch.int32 for x in xs):
+        raise TypeError(f"{entry} takes int32, got {[x.dtype for x in xs]}")
+    got = [(tuple(x.shape), str(x.device)) for x in xs]
+    raise ValueError(f"{entry} takes (..., {N_LIMBS}) limbs on one CUDA "
+                     f"device, got {got}")
+
+
+def _ready(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous, with a 16-byte aligned base (the kernels' vector
+    loads).  A strided view, such as a tower's ``a[..., 0, :]``, costs one
+    copy here."""
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if x.data_ptr() & 15:
+        x = x.clone()
+    return x
+
+
+def _launch(entry: str, out: torch.Tensor, *ptrs: int) -> None:
+    """Launch C entry point ``entry`` on the current stream of ``out``'s
+    device, without synchronising; raise on a non-zero
+    ``cudaGetLastError``."""
+    fn = getattr(_lib or build(), entry)
+    rows = out.numel() // N_LIMBS
+    index = out.get_device()
+    if index == torch.cuda.current_device():
+        err = fn(*ptrs, out.data_ptr(), rows, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*ptrs, out.data_ptr(), rows, _raw_stream(index))
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+
+
+def _raw_stream(index: int) -> int:
+    """The current stream of device ``index`` as a cudaStream_t; the same
+    call Triton's launcher makes, without building a Stream object."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def binary(entry: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``entry`` on two (..., 32) int32 limb tensors on one CUDA device,
+    broadcast against each other, into a new tensor.  Zero rows launch
+    nothing."""
+    if (a.dtype is not torch.int32 or b.dtype is not torch.int32
+            or not a.is_cuda or not b.is_cuda
+            or a.get_device() != b.get_device()):
+        _refuse(entry, a, b)
+    if a.shape != b.shape:
+        a, b = torch.broadcast_tensors(a, b)
+    if a.dim() == 0 or a.shape[-1] != N_LIMBS:
+        _refuse(entry, a, b)
+    a, b = _ready(a), _ready(b)
+    out = torch.empty_like(a)
+    if out.numel():
+        _launch(entry, out, a.data_ptr(), b.data_ptr())
+    return out
+
+
+def unary(entry: str, a: torch.Tensor) -> torch.Tensor:
+    """``entry`` on one (..., 32) int32 limb tensor on a CUDA device, as
+    ``binary``."""
+    if (a.dtype is not torch.int32 or not a.is_cuda or a.dim() == 0
+            or a.shape[-1] != N_LIMBS):
+        _refuse(entry, a)
+    a = _ready(a)
+    out = torch.empty_like(a)
+    if out.numel():
+        _launch(entry, out, a.data_ptr())
+    return out

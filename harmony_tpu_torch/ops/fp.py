@@ -7,10 +7,13 @@ The same arithmetic as the JAX package's ops/fp.py, limb for limb:
 - Additions and subtractions resolve carries and borrows by a
   Kogge-Stone lookahead over (generate, propagate) pairs along the limb
   axis.
-- ``mont_mul`` is the one multiply.  For a CUDA tensor it launches the
-  hand-written kernel (kernels/mont_mul.py); for a CPU tensor it runs
-  ``mont_mul_reference``, the 32-step shift-based CIOS in plain PyTorch.
-  Nothing selects the plain version for a tensor on the card.
+- ``mont_mul``, ``add``, ``sub`` and ``neg`` dispatch on their tensors'
+  device.  For a CUDA tensor each launches a hand-written kernel
+  (kernels/mont_mul.py, kernels/fp_addsub.py); for a CPU tensor it runs
+  its plain PyTorch version (``mont_mul_reference``, the 32-step
+  shift-based CIOS; ``add_reference``, ``sub_reference``,
+  ``neg_reference``).  Nothing selects a plain version for a tensor on
+  the card.
 
 All functions are shape-polymorphic over leading batch axes and run on
 the device of their inputs; tower fields (ops/towers.py) stack their
@@ -20,6 +23,8 @@ one kernel launch).
 
 import torch
 
+from ..kernels import fp_addsub as K_ADDSUB
+from ..kernels import mont_mul as K_MUL
 from . import _constants as C
 from .limbs import LIMB_BITS, LIMB_MASK, N_LIMBS, int_to_limbs
 
@@ -121,12 +126,34 @@ def cond_sub_p(a):
 
 
 def add(a, b):
-    """Canonical modular addition."""
-    return cond_sub_p(resolve_carries(a + b))
+    """Canonical modular addition: the kernel for CUDA tensors, the plain
+    version for CPU tensors (the same dispatch as ``mont_mul``)."""
+    if a.is_cpu and b.is_cpu:
+        return add_reference(a, b)
+    return K_ADDSUB.add(a, b)
+
+
+def sub(a, b):
+    """Canonical modular subtraction, dispatched as ``add``."""
+    if a.is_cpu and b.is_cpu:
+        return sub_reference(a, b)
+    return K_ADDSUB.sub(a, b)
 
 
 def neg(a):
-    """Canonical modular negation (p - a, with -0 = 0).
+    """Canonical modular negation (-0 = 0), dispatched as ``add``."""
+    if a.is_cpu:
+        return neg_reference(a)
+    return K_ADDSUB.neg(a)
+
+
+def add_reference(a, b):
+    """The plain PyTorch modular addition."""
+    return cond_sub_p(resolve_carries(a + b))
+
+
+def neg_reference(a):
+    """The plain PyTorch modular negation (p - a, with -0 = 0).
 
     The JAX package reduces p - a by a conditional subtraction; p - a of
     a canonical a only reaches p at a = 0, so a select gives the same
@@ -135,8 +162,8 @@ def neg(a):
     return torch.where(is_zero(a)[..., None], a, diff)
 
 
-def sub(a, b):
-    """Canonical modular subtraction.
+def sub_reference(a, b):
+    """The plain PyTorch modular subtraction.
 
     The JAX package computes add(a, neg(b)), four carry passes; here
     a - b is exact digits mod 2^384 plus a borrow, and where it borrowed,
@@ -154,11 +181,9 @@ def mont_mul(a, b):
     ``mont_mul_reference``; anything else goes to the CUDA kernel's
     wrapper, which launches it or raises.
     """
-    if a.device.type == "cpu" and b.device.type == "cpu":
+    if a.is_cpu and b.is_cpu:
         return mont_mul_reference(a, b)
-    from ..kernels import mont_mul as K
-
-    return K.mont_mul(a, b)
+    return K_MUL.mont_mul(a, b)
 
 
 def mont_mul_reference(a, b):

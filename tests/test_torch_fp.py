@@ -16,6 +16,7 @@ from harmony_tpu.ops import _constants as JC
 from harmony_tpu.ops import fp as jfp
 from harmony_tpu.ops.fp_pallas import mont_mul_pallas
 from harmony_tpu.ref import params as JP
+from harmony_tpu_torch.kernels import fp_addsub as KA
 from harmony_tpu_torch.kernels import mont_mul as K
 from harmony_tpu_torch.ops import _constants as TC
 from harmony_tpu_torch.ops import fp as tfp
@@ -139,6 +140,32 @@ def test_add_sub_neg_match_jax(op, vectors):
               "sub": [(x - y) % P for x, y in zip(xs, ys)],
               "neg": [(-x) % P for x in xs]}[op]
     assert _ints(out) == expect
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "neg"])
+def test_cpu_add_sub_neg_take_the_plain_versions_and_launch_nothing(
+        op, monkeypatch):
+    a = torch.from_numpy(_limbs([3, P - 1]))
+    b = torch.from_numpy(_limbs([P - 5, 7]))
+    args = (a,) if op == "neg" else (a, b)
+    plain = getattr(tfp, f"{op}_reference")
+    calls = []
+    monkeypatch.setattr(tfp, f"{op}_reference",
+                        lambda *xs: calls.append(1) or plain(*xs))
+    before = (KA.LAUNCHES, K.LAUNCHES)
+    _same(getattr(tfp, op)(*args), plain(*args))
+    assert calls == [1]
+    assert (KA.LAUNCHES, K.LAUNCHES) == before
+
+
+def test_fp_addsub_kernel_refuses_cpu_tensors_and_wrong_dtypes():
+    a = torch.from_numpy(_limbs([3, 5]))
+    for fn, args in ((KA.add, (a, a)), (KA.sub, (a, a)), (KA.neg, (a,))):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args)
+        with pytest.raises(TypeError, match="int32"):
+            fn(*(x.long() for x in args))
+    assert KA.LAUNCHES == 0
 
 
 def test_inv_matches_jax():

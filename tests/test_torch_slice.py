@@ -23,6 +23,8 @@ from harmony_tpu.ref import bls as RB
 from harmony_tpu.ref.hash_to_curve import hash_to_g2 as j_hash_to_g2
 from harmony_tpu.ref.params import R_ORDER
 from harmony_tpu_torch import device as TD
+from harmony_tpu_torch.kernels import _build as KB
+from harmony_tpu_torch.kernels import fp_addsub as KA
 from harmony_tpu_torch.kernels import mont_mul as K
 from harmony_tpu_torch.ref.hash_to_curve import hash_to_g2 as t_hash_to_g2
 
@@ -94,7 +96,8 @@ def test_batch_verdicts_are_as_constructed(port_verdicts, lanes):
 def test_batch_counts_one_chunk_and_no_kernel_launch(port_verdicts):
     _, before = port_verdicts
     assert TD.COUNTERS["batch_verify"] == before["batch_verify"] + 1
-    assert K.LAUNCHES == 0  # CPU tensors never reach the CUDA kernel
+    assert K.LAUNCHES == 0  # CPU tensors never reach the CUDA kernels
+    assert KA.LAUNCHES == 0
 
 
 def test_hash_to_g2_equals_jax_package():
@@ -131,8 +134,8 @@ def test_from_numpy_rejects_a_table_of_the_wrong_bucket():
 def test_kernel_build_failure_raises(monkeypatch, tmp_path):
     """No nvcc: the build raises instead of falling back."""
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
-    monkeypatch.setattr(K, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(K, "_lib", None)
+    monkeypatch.setattr(KB, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(KB, "_lib", None)
     with pytest.raises(OSError):
-        K.build()
-    assert K._lib is None
+        KB.build()
+    assert KB._lib is None
