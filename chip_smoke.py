@@ -5,9 +5,9 @@
 
 Run from the root of a checkout on a machine with one CUDA card.  It
 
-1. prints the card's name and power limit and builds the CUDA kernels
-   (harmony_tpu_torch/csrc/mont_mul.cu and fp_addsub.cu, one library)
-   from the checkout;
+1. prints the card's name and power limit and builds the four CUDA
+   kernels (harmony_tpu_torch/csrc/mont_mul.cu, fp_addsub.cu,
+   fp12_mul.cu and fp12_cyclo_sqr.cu, one library) from the checkout;
 2. holds each kernel against its plain PyTorch version on the card, bit
    for bit, at the shapes the verify path gives it and on edge cases;
    times both with the wrapper, and each kernel alone on the device
@@ -16,11 +16,11 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    mainnet width (a 200-slot committee, bucket 256): one quorum
    certificate and its forgeries, a replay batch of 64 headers, 8
    single checks and one check from payload bytes, each verdict as
-   constructed; it shows that every entry point went through both
+   constructed; it shows that every entry point went through all four
    kernels and counts the other tensor ops each call issues;
 4. holds a pairing product on the card against the CPU plain path, and
-   profiles one Fp12 product (wall time against device time, split by
-   kernel);
+   profiles one Fp12 product and one quorum check (wall time against
+   device time, split by kernel);
 5. prints a JSON line describing each kernel, then, last,
    {"ok": true, "device": {...}}.
 
@@ -30,6 +30,7 @@ and prints no result.  Keys, payloads and signatures come from --seed.
 """
 
 import argparse
+import contextlib
 import json
 import random
 import subprocess
@@ -46,9 +47,17 @@ INT32_OPS_PER_S = 16.75e12
 # b, write the product (128 B each); 2 x 12 x 12 = 288 32x32->64-bit word
 # products, 2 IMAD each.  add, sub: read two rows, write one; neg: read
 # one, write one; 12 words each of add-with-carry, subtract-with-borrow
-# and select.
-WORK = {"mont_mul": (3 * 128, 2 * 288), "add": (3 * 128, 3 * 12),
-        "sub": (3 * 128, 3 * 12), "neg": (2 * 128, 3 * 12)}
+# and select.  Per Fp12 lane (12 rows): fp12_mul reads a and b and writes
+# the product, and makes 54 Montgomery products; fp12_cyclo_sqr reads and
+# writes one lane whatever the count n of squarings, and makes 18
+# Montgomery products per squaring (its operations are per squaring).
+# The adds and subs around the products are left out of the towers'
+# operations: a few per cent more.
+MONT_IMAD = 2 * 288
+WORK = {"mont_mul": (3 * 128, MONT_IMAD), "add": (3 * 128, 3 * 12),
+        "sub": (3 * 128, 3 * 12), "neg": (2 * 128, 3 * 12),
+        "fp12_mul": (3 * 12 * 128, 54 * MONT_IMAD),
+        "fp12_cyclo_sqr": (2 * 12 * 128, 18 * MONT_IMAD)}
 
 # Rows per call at the shapes timed: one fp12_mul at 64 lanes (54 products
 # x 64), 2^16, and the largest call the slice makes.  That is the first
@@ -57,6 +66,12 @@ WORK = {"mont_mul": (3 * 128, 2 * 288), "add": (3 * 128, 3 * 12),
 # time (4 x 128 x 64 rows) and whose additions take one (128 x 64).
 FP12_ROWS = 54 * 64
 LARGEST_ROWS = {"mont_mul": 4 * 128 * 64, "fp_addsub": 128 * 64}
+# Fp12 lanes at the path's shapes: a quorum check's final exponentiation
+# (1) and Miller loop (2 pairings), and the 64-header batch's Miller loop
+# (2 x 64)
+FP12_LANES = {"1": 1, "2": 2, "2x64": 128}
+# the runs of squarings of |x|'s and |x - 1|'s schedules
+CYCLO_RUNS = (1, 2, 3, 9, 16, 32)
 
 COMMITTEE = 200  # Harmony mainnet: 200 slots per shard (epoch >= 1673)
 QUORUM = 150
@@ -107,7 +122,27 @@ def canonical_limbs(rng, shape):
     return limbs
 
 
-HAND_KERNELS = ("mont_mul_kernel", "fp_addsub_kernel")
+KERNELS = ("mont_mul", "fp_addsub", "fp12_mul", "fp12_cyclo_sqr")
+
+
+def wrappers():
+    """Each kernel's wrapper module, by kernel name; each counts its
+    launches in ``LAUNCHES``."""
+    from harmony_tpu_torch.kernels import fp12_cyclo_sqr, fp12_mul, \
+        fp_addsub, mont_mul
+
+    return {"mont_mul": mont_mul, "fp_addsub": fp_addsub,
+            "fp12_mul": fp12_mul, "fp12_cyclo_sqr": fp12_cyclo_sqr}
+
+
+def launches():
+    return {name: m.LAUNCHES for name, m in wrappers().items()}
+
+
+def symbol(name):
+    """What the profiler calls a kernel: ``<name>_kernel`` (no name is a
+    part of another's symbol)."""
+    return f"{name}_kernel"
 
 
 def profiled(fn, reps, activities=("CUDA",)):
@@ -122,29 +157,26 @@ def profiled(fn, reps, activities=("CUDA",)):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from harmony_tpu_torch.kernels import fp_addsub as KA
-    from harmony_tpu_torch.kernels import mont_mul as K
-
     fn()
     torch.cuda.synchronize()
     attempts = 5
     for attempt in range(1, attempts + 1):
-        before = (K.LAUNCHES, KA.LAUNCHES)
+        before = launches()
         with profile(activities=[getattr(ProfilerActivity, a)
                                  for a in activities]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         rows = prof.key_averages()
-        made = dict(zip(HAND_KERNELS, (K.LAUNCHES - before[0],
-                                       KA.LAUNCHES - before[1])))
-        seen = {k: sum(r.count for r in rows if k in r.key)
-                for k in HAND_KERNELS}
-        if all(seen[k] >= 0.5 * made[k] for k in HAND_KERNELS):
+        made = {k: n - before[k] for k, n in launches().items()}
+        seen = {k: sum(r.count for r in rows if symbol(k) in r.key)
+                for k in KERNELS}
+        if all(seen[k] >= 0.5 * made[k] for k in KERNELS):
             return rows, {
-                k: sum(r.self_device_time_total for r in rows if k in r.key)
-                / seen[k] * made[k] / reps if seen[k] else 0.0
-                for k in HAND_KERNELS}
+                k: sum(r.self_device_time_total for r in rows
+                       if symbol(k) in r.key) / seen[k] * made[k] / reps
+                if seen[k] else 0.0
+                for k in KERNELS}
         log(f"the profiler saw {seen} of {made} launches (attempt "
             f"{attempt} of {attempts})")
     raise AssertionError(f"the profiler saw {seen} of {made} launches")
@@ -175,13 +207,14 @@ def host_us(fn, reps):
     return us
 
 
-def bound(op, rows):
+def bound(op, rows, n=1):
     """(ms, what bounds it): the least time the card could take for ``op``
-    on ``rows`` rows, from the bytes it must move and the operations it
+    on ``rows`` rows (Fp12 lanes for the towers; n squarings for
+    fp12_cyclo_sqr), from the bytes it must move and the operations it
     must do, at the published peaks."""
     nbytes, ops = WORK[op]
     by_bytes = rows * nbytes / HBM_BYTES_PER_S
-    by_ops = rows * ops / INT32_OPS_PER_S
+    by_ops = rows * ops * n / INT32_OPS_PER_S
     return 1e3 * max(by_bytes, by_ops), (
         "bytes" if by_bytes >= by_ops else "operations")
 
@@ -327,14 +360,12 @@ def timing_phase(seed):
 
     rng = np.random.default_rng(seed + 4)
     dev = torch.device("cuda")
-    calls = {"mont_mul": (K.mont_mul, fp.mont_mul_reference,
-                          "mont_mul_kernel"),
-             "add": (KA.add, fp.add_reference, "fp_addsub_kernel"),
-             "sub": (KA.sub, fp.sub_reference, "fp_addsub_kernel"),
-             "neg": (KA.neg, fp.neg_reference, "fp_addsub_kernel")}
+    calls = {"mont_mul": (K.mont_mul, fp.mont_mul_reference, "mont_mul"),
+             "add": (KA.add, fp.add_reference, "fp_addsub"),
+             "sub": (KA.sub, fp.sub_reference, "fp_addsub"),
+             "neg": (KA.neg, fp.neg_reference, "fp_addsub")}
     timings = {}
-    for op, (kernel, plain, name) in calls.items():
-        family = "mont_mul" if op == "mont_mul" else "fp_addsub"
+    for op, (kernel, plain, family) in calls.items():
         shapes = {"fp12x64": FP12_ROWS, "2^16": 1 << 16,
                   "largest": LARGEST_ROWS[family]}
         for shape, rows in shapes.items():
@@ -345,7 +376,8 @@ def timing_phase(seed):
             t = timings.setdefault(op, {})[shape] = {
                 "rows": rows,
                 "ms": cuda_ms(lambda: kernel(*args), 200),
-                "device_ms": 1e-3 * device_us(lambda: kernel(*args), name, 50),
+                "device_ms": 1e-3 * device_us(lambda: kernel(*args), family,
+                                              50),
                 "plain_ms": cuda_ms(lambda: plain(*args), 10),
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
@@ -373,6 +405,191 @@ def timing_phase(seed):
     }
     log("host us per call at 3456 rows: " + ", ".join(
         f"{k} {us:.3f}" for k, us in timings["host_us"].items()))
+    return timings
+
+
+@contextlib.contextmanager
+def plain_fp():
+    """Within: the Fp operations of ops/fp.py are their plain PyTorch
+    versions, so the towers' plain compositions (``*_reference``) run on
+    the card without a hand kernel, as the plain versions the fused
+    kernels are held against and timed beside."""
+    from harmony_tpu_torch.ops import fp
+
+    names = ("add", "sub", "neg", "mont_mul")
+    saved = {n: getattr(fp, n) for n in names}
+    before = launches()
+    try:
+        for n in names:
+            setattr(fp, n, getattr(fp, f"{n}_reference"))
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(fp, n, f)
+    check(launches() == before, "a plain version launched a hand kernel")
+
+
+def fp12_limbs(rng, *lead):
+    """Random canonical Fp12 values, (*lead, 2, 3, 2, 32), on the card."""
+    import torch
+
+    return torch.from_numpy(canonical_limbs(rng, (*lead, 2, 3, 2))).cuda()
+
+
+def cyclotomic(rng, lanes):
+    """Unitary Fp12 values f^((p^6 - 1)(p^2 + 1)) of random f, as every
+    final-exponentiation intermediate after the easy part; built on the
+    CPU by the plain path, returned on the card."""
+    import torch
+
+    from harmony_tpu_torch.ops import towers as T
+
+    f = torch.from_numpy(canonical_limbs(rng, (lanes, 2, 3, 2)))
+    with torch.inference_mode():
+        f1 = T.fp12_mul(T.fp12_conj(f), T.fp12_inv(f))
+        return T.fp12_mul(T.fp12_frobenius(f1, 2), f1).cuda()
+
+
+def fp12_mul_phase(seed, stats):
+    """The fp12_mul kernel (products, and squares on (a, a)) against the
+    plain composition on the card, bit for bit, at the path's lane counts,
+    the stacked Miller shape, a broadcast operand, strided views and edge
+    values; two lanes also against the host bigint."""
+    import numpy as np
+    import torch
+
+    from harmony_tpu_torch.kernels import fp12_mul as KM
+    from harmony_tpu_torch.ops import interop as I
+    from harmony_tpu_torch.ops import towers as T
+    from harmony_tpu_torch.ops.limbs import ints_to_limbs
+    from harmony_tpu_torch.ref import fields as RF
+    from harmony_tpu_torch.ref.params import P
+
+    rng = np.random.default_rng(seed + 5)
+
+    def compare(name, a, b=None):
+        if b is None:
+            got = KM.fp12_mul(a, a)
+            with plain_fp():
+                want = T.fp12_sqr_reference(a)
+        else:
+            got = KM.fp12_mul(a, b)
+            with plain_fp():
+                want = T.fp12_mul_reference(a, b)
+        _compare(name, got, want, stats)
+        return got
+
+    for lanes in (1, 2, 64, 128):
+        a, b = fp12_limbs(rng, lanes), fp12_limbs(rng, lanes)
+        got = compare(f"fp12_mul, {lanes} lanes", a, b)
+        compare(f"fp12_sqr, {lanes} lanes", a)
+    for i in (0, 127):
+        x, y, z = (I.arr_to_fp12(t[i].cpu()) for t in (a, b, got))
+        check(z == RF.fp12_mul(x, y),
+              f"fp12_mul lane {i}: kernel differs from the host bigint")
+    log("fp12_mul kernel == host bigint on 2 lanes of 128")
+    compare("fp12_mul, the stacked Miller shape (2, 64)",
+            fp12_limbs(rng, 2, 64), fp12_limbs(rng, 2, 64))
+    compare("fp12_mul, one value broadcast against 64 lanes",
+            fp12_limbs(rng, 64), fp12_limbs(rng))
+    x = fp12_limbs(rng, 128)
+    compare("fp12_mul, strided views (alternate lanes)", x[::2], x[1::2])
+    compare("fp12_sqr, a strided view", x[1::2])
+    edges = [0, 1, P - 1, (1 << 380) - 1, P - (1 << 12), (1 << 372) - 1,
+             P - (1 << 372)]
+    rows = ints_to_limbs([edges[i % len(edges)] for i in range(4 * 12)])
+    e = torch.from_numpy(rows).reshape(4, 2, 3, 2, 32).cuda()
+    compare("fp12_mul, edge values", e, e.flip(0))
+    compare("fp12_sqr, edge values", e)
+
+
+def cyclo_phase(seed, stats):
+    """The fp12_cyclo_sqr kernel against n plain squarings on the card,
+    bit for bit, for each run length of the path, on unitary values (64
+    lanes) and on random values (1 lane), which it must square by the
+    same polynomial; two results also against the host bigint."""
+    import numpy as np
+
+    from harmony_tpu_torch.kernels import fp12_cyclo_sqr as KC
+    from harmony_tpu_torch.ops import interop as I
+    from harmony_tpu_torch.ops import towers as T
+    from harmony_tpu_torch.ref import fields as RF
+
+    rng = np.random.default_rng(seed + 6)
+    inputs = {"unitary, 64 lanes": cyclotomic(rng, 64),
+              "random, 1 lane": fp12_limbs(rng, 1)}
+    unitary = I.arr_to_fp12(inputs["unitary, 64 lanes"][0].cpu())
+    for n in CYCLO_RUNS:
+        for kind, a in inputs.items():
+            got = KC.fp12_cyclo_sqr_n(a, n)
+            want = a
+            with plain_fp():
+                for _ in range(n):
+                    want = T.fp12_cyclo_sqr_reference(want)
+            _compare(f"fp12_cyclo_sqr, n = {n}, {kind}", got, want, stats)
+            if kind.startswith("unitary") and n in (1, 32):
+                check(I.arr_to_fp12(got[0].cpu())
+                      == RF.fp12_pow(unitary, 1 << n),
+                      f"fp12_cyclo_sqr n = {n}: kernel differs from the "
+                      f"host bigint")
+    log("fp12_cyclo_sqr kernel == host bigint a^(2^n), n = 1 and 32")
+
+
+def tower_timing_phase(seed):
+    """fp12_mul and fp12_cyclo_sqr at the path's shapes: wrapper-inclusive
+    ms by CUDA events, the kernel's own device time by torch.profiler, the
+    plain version's ms (plain PyTorch on the card), the ms of the
+    composition over the Fp kernels that the fused kernel replaced, the
+    bound, and the wrapper's host cost per call."""
+    import numpy as np
+
+    from harmony_tpu_torch.kernels import fp12_cyclo_sqr as KC
+    from harmony_tpu_torch.kernels import fp12_mul as KM
+    from harmony_tpu_torch.ops import towers as T
+
+    rng = np.random.default_rng(seed + 7)
+    timings = {"fp12_mul": {}, "fp12_cyclo_sqr": {}}
+
+    def cyclo_loop(a, n):
+        for _ in range(n):
+            a = T.fp12_cyclo_sqr_reference(a)
+        return a
+
+    def plain(fn):
+        def run():
+            with plain_fp():
+                return fn()
+        return run
+
+    cases = [("fp12_mul", f"{shape} lanes", lanes, 1)
+             for shape, lanes in FP12_LANES.items()]
+    cases += [("fp12_cyclo_sqr", f"{lanes} lanes, n = {n}", lanes, n)
+              for lanes, n in ((1, 1), (1, 32), (64, 32))]
+    for op, shape, lanes, n in cases:
+        a, b = fp12_limbs(rng, lanes), fp12_limbs(rng, lanes)
+        if op == "fp12_mul":
+            kernel = lambda: KM.fp12_mul(a, b)  # noqa: E731
+            composed = lambda: T.fp12_mul_reference(a, b)  # noqa: E731
+        else:
+            kernel = lambda: KC.fp12_cyclo_sqr_n(a, n)  # noqa: E731
+            composed = lambda: cyclo_loop(a, n)  # noqa: E731
+        bound_ms, bound_by = bound(op, lanes, n)
+        t = timings[op][shape] = {
+            "lanes": lanes,
+            "n": n,
+            "ms": cuda_ms(kernel, 200),
+            "device_ms": 1e-3 * device_us(kernel, op, 50),
+            "plain_ms": cuda_ms(plain(composed), 2 if n > 1 else 5),
+            "composed_ms": cuda_ms(composed, 5 if n > 1 else 20),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "host_us_per_call": host_us(kernel, 500),
+        }
+        log(f"{op} at {shape}: {t['ms']:.6f} ms with the wrapper, "
+            f"{t['device_ms']:.6f} ms on the device, plain "
+            f"{t['plain_ms']:.6f} ms, composed over the Fp kernels "
+            f"{t['composed_ms']:.6f} ms, bound {bound_ms:.6f} ms "
+            f"({bound_by}), host {t['host_us_per_call']:.3f} us per call")
     return timings
 
 
@@ -424,20 +641,17 @@ def count_ops(fn, *args):
 
 
 def timed(fn, *args):
-    """(result, wall ms, (mont_mul, fp_addsub) launches) of one call; every
-    entry point returns host bools, so the call has finished on the card."""
+    """(result, wall ms, launches of each kernel) of one call; every entry
+    point returns host bools, so the call has finished on the card."""
     import torch
 
-    from harmony_tpu_torch.kernels import fp_addsub as KA
-    from harmony_tpu_torch.kernels import mont_mul as K
-
     torch.cuda.synchronize()
-    before = (K.LAUNCHES, KA.LAUNCHES)
+    before = launches()
     t0 = time.perf_counter()
     out = fn(*args)
     torch.cuda.synchronize()
-    return out, 1e3 * (time.perf_counter() - t0), (
-        K.LAUNCHES - before[0], KA.LAUNCHES - before[1])
+    ms = 1e3 * (time.perf_counter() - t0)
+    return out, ms, {k: n - before[k] for k, n in launches().items()}
 
 
 def slice_phase(seed):
@@ -468,9 +682,10 @@ def slice_phase(seed):
     fn = D.agg_verify_hashed_on_device
     ok, ops = count_ops(fn, table, bits, h, sig)  # warm
     check(ok is True, "valid quorum certificate rejected")
-    ok, ms, launches = timed(fn, table, bits, h, sig)
+    ok, ms, made = timed(fn, table, bits, h, sig)
     check(ok is True, "valid quorum certificate rejected (second call)")
-    results["agg_verify_hashed_on_device"] = (ms, launches, ops)
+    results["agg_verify_hashed_on_device"] = (ms, made, ops)
+    qc = (fn, table, bits, h, sig)
     for what, args in (("one bit flipped", (flipped, h, sig)),
                        ("wrong payload", (bits, hashes[1], sig)),
                        ("infinity signature", (bits, h, ((0, 0), (0, 0))))):
@@ -504,9 +719,9 @@ def slice_phase(seed):
     fn = D.agg_verify_batch_on_device
     out, ops = count_ops(fn, table, *args)  # warm
     check(out == want, f"replay batch verdicts {out} != {want}")
-    out, ms, launches = timed(fn, table, *args)
+    out, ms, made = timed(fn, table, *args)
     check(out == want, "replay batch verdicts (second call)")
-    results["agg_verify_batch_on_device"] = (ms, launches, ops)
+    results["agg_verify_batch_on_device"] = (ms, made, ops)
     log(f"agg_verify_batch_on_device: {len(lanes)} headers, "
         f"{sum(want)} valid and {len(want) - sum(want)} forged, as built")
 
@@ -523,31 +738,37 @@ def slice_phase(seed):
     fn = D.verify_many_on_device
     out, ops = count_ops(fn, pk_pts, h_pts, sig_pts)  # warm
     check(out == expect, f"single checks {out} != {expect}")
-    out, ms, launches = timed(fn, pk_pts, h_pts, sig_pts)
+    out, ms, made = timed(fn, pk_pts, h_pts, sig_pts)
     check(out == expect, "single checks (second call)")
-    results["verify_many_on_device"] = (ms, launches, ops)
+    results["verify_many_on_device"] = (ms, made, ops)
     log(f"verify_many_on_device: {SINGLE_CHECKS} checks, "
         f"{sum(expect)} valid and {len(expect) - sum(expect)} forged")
 
     # one single check from the payload bytes (it hashes on the host)
     i = rng.randrange(COMMITTEE)
-    ok, ms, launches = timed(D.verify_on_device, pks[i], payloads[0],
-                             g2.mul(hashes[0], sks[i]))
+    ok, ms, made = timed(D.verify_on_device, pks[i], payloads[0],
+                         g2.mul(hashes[0], sks[i]))
     check(ok is True, "verify_on_device rejected a valid signature")
-    results["verify_on_device"] = (ms, launches, None)
+    results["verify_on_device"] = (ms, made, None)
     log("verify_on_device: valid signature True")
 
-    for name, (ms, (muls, addsubs), ops) in results.items():
-        check(muls > 0, f"{name} never launched the mont_mul kernel")
-        check(addsubs > 0, f"{name} never launched the fp_addsub kernel")
-        line = (f"{name}: {ms:.3f} ms per call, {muls} mont_mul and "
-                f"{addsubs} fp_addsub launches")
+    for name, (ms, made, ops) in results.items():
+        for kernel, n in made.items():
+            check(n > 0, f"{name} never launched the {kernel} kernel")
+        line = f"{name}: {ms:.3f} ms per call, " + ", ".join(
+            f"{n} {kernel}" for kernel, n in made.items()) + " launches"
         if ops is not None:
+            dispatches = sum(made.values()) + ops
             line += (f" and {ops} other tensor ops per call "
-                     f"({1e3 * ms / (muls + addsubs + ops):.3f} us per "
-                     f"launch or op)")
+                     f"({1e3 * ms / dispatches:.3f} us per launch or op)")
         log(line)
-    return results
+    # what fusing the tower operations must have removed from one check
+    made = results["agg_verify_hashed_on_device"][1]
+    for kernel, most in (("fp_addsub", 5000), ("fp12_mul", 200),
+                         ("fp12_cyclo_sqr", 40)):
+        check(made[kernel] <= most, f"one quorum check launched {kernel} "
+              f"{made[kernel]} times, more than {most}")
+    return results, qc
 
 
 def gt_phase(seed):
@@ -572,45 +793,59 @@ def gt_phase(seed):
     log("pairing_product on the card == CPU plain path (GT, 2 pairs)")
 
 
-def profile_phase(seed):
-    """Where the time of the path's commonest call goes: one Fp12 product
-    at 64 lanes, its wall time without a profiler against the device time
-    torch.profiler records for it, by kernel."""
+def profile_phase(seed, qc):
+    """Where the time goes: one Fp12 product at 64 lanes (the fused
+    kernel, and the composition over the Fp kernels that it replaced) and
+    one quorum check (bucket 256); each one's wall time without a
+    profiler against the device time torch.profiler records, by kernel.
+    Device time is summed over the device's own rows: the rows of the
+    ATen operators carry their kernels' time again."""
     import numpy as np
     import torch
+    from torch.autograd import DeviceType
 
-    from harmony_tpu_torch.kernels import fp_addsub as KA
-    from harmony_tpu_torch.kernels import mont_mul as K
     from harmony_tpu_torch.ops import towers as T
 
     rng = np.random.default_rng(seed + 2)
-    shape = (64, 2, 3, 2)
-    a = torch.from_numpy(canonical_limbs(rng, shape)).cuda()
-    b = torch.from_numpy(canonical_limbs(rng, shape)).cuda()
-    reps = 20
-    with torch.inference_mode():
-        for _ in range(2):
-            T.fp12_mul(a, b)
-        before = (K.LAUNCHES, KA.LAUNCHES)
-        T.fp12_mul(a, b)
-        muls, addsubs = K.LAUNCHES - before[0], KA.LAUNCHES - before[1]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            T.fp12_mul(a, b)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0) / reps
-        rows, split = profiled(lambda: T.fp12_mul(a, b), reps,
-                               ("CPU", "CUDA"))
-    rest = sum(r.self_device_time_total for r in rows
-               if not any(k in r.key for k in HAND_KERNELS)) / reps
-    device_us = rest + sum(split.values())
-    check(all(split.values()), f"a kernel is missing from fp12_mul: {split}")
-    log(f"fp12_mul at 64 lanes: {wall_us:.3f} us wall per call, "
-        f"{device_us:.3f} us device time ({100 * device_us / wall_us:.2f}% "
-        f"busy): mont_mul {split['mont_mul_kernel']:.3f} us in {muls} "
-        f"launches, fp_addsub {split['fp_addsub_kernel']:.3f} us in "
-        f"{addsubs} launches, the rest {rest:.3f} us")
+    a, b = fp12_limbs(rng, 64), fp12_limbs(rng, 64)
+    calls = {
+        "fp12_mul at 64 lanes": (lambda: T.fp12_mul(a, b), 20),
+        "the composition over the Fp kernels at 64 lanes": (
+            lambda: T.fp12_mul_reference(a, b), 20),
+        "one quorum check": (lambda: qc[0](*qc[1:]), 3),
+    }
+    out = {}
+    for name, (fn, reps) in calls.items():
+        with torch.inference_mode():
+            fn()
+            before = launches()
+            fn()
+            made = {k: n - before[k] for k, n in launches().items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0) / reps
+            rows, split = profiled(fn, reps, ("CPU", "CUDA"))
+        others = [r for r in rows
+                  if not any(symbol(k) in r.key for k in KERNELS)]
+        rest = sum(r.self_device_time_total for r in others
+                   if r.device_type == DeviceType.CUDA) / reps
+        rest_all_rows = sum(r.self_device_time_total for r in others) / reps
+        device = rest + sum(split.values())
+        if "composition" not in name:
+            check(split["fp12_mul"] > 0, f"{name}: no fp12_mul kernel seen")
+        out[name] = {"wall_us": wall_us, "device_us": device,
+                     "busy": device / wall_us, "launches": made,
+                     "kernel_us": split, "rest_us": rest,
+                     "rest_us_all_rows": rest_all_rows}
+        log(f"{name}: {wall_us:.3f} us wall per call, {device:.3f} us "
+            f"device time ({100 * device / wall_us:.2f}% busy): " + ", ".join(
+                f"{k} {split[k]:.3f} us in {made[k]} launches"
+                for k in KERNELS) + f", the rest {rest:.3f} us (summed over "
+            f"all rows, as before: {rest_all_rows:.3f} us)")
+    return out
 
 
 def main(argv=None):
@@ -626,13 +861,13 @@ def main(argv=None):
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
         from harmony_tpu_torch.kernels import _build
-        from harmony_tpu_torch.kernels import fp_addsub as KA
-        from harmony_tpu_torch.kernels import mont_mul as K
+        wrappers()
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repo ({e})",
               file=sys.stderr)
         return 2
 
+    started = time.perf_counter()
     log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
@@ -642,49 +877,62 @@ def main(argv=None):
         f"{', '.join(src.name for src in _build.SOURCES)} in "
         f"{time.perf_counter() - t0:.3f} s")
 
-    stats = {"mont_mul": {"max_abs_err": 0}, "fp_addsub": {"max_abs_err": 0}}
+    stats = {k: {"max_abs_err": 0} for k in KERNELS}
     mont_mul_phase(args.seed, stats["mont_mul"])
     addsub_phase(args.seed, stats["fp_addsub"])
+    fp12_mul_phase(args.seed, stats["fp12_mul"])
+    cyclo_phase(args.seed, stats["fp12_cyclo_sqr"])
     timings = timing_phase(args.seed)
+    timings.update(tower_timing_phase(args.seed))
 
     # the main path: launch counts start from zero here
-    K.LAUNCHES = KA.LAUNCHES = 0
-    slice_phase(args.seed)
-    launches = {"mont_mul": K.LAUNCHES, "fp_addsub": KA.LAUNCHES}
-    for name, n in launches.items():
+    for module in wrappers().values():
+        module.LAUNCHES = 0
+    _, qc = slice_phase(args.seed)
+    path = launches()
+    for name, n in path.items():
         check(n > 0, f"the main path never launched the {name} kernel")
-    log(f"main path: {launches['mont_mul']} mont_mul and "
-        f"{launches['fp_addsub']} fp_addsub launches")
+    log("main path: " + ", ".join(f"{n} {name}" for name, n in path.items())
+        + " launches")
     gt_phase(args.seed)
-    profile_phase(args.seed)
+    profile_phase(args.seed, qc)
 
-    def entry(name, source, replaces, op):
-        t = timings[op]["2^16"]
+    def entry(name, source, replaces, op, shape, described, kept):
+        t = timings[op][shape]
         return {
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": launches[name],
+            "launches": path[name],
             "max_abs_err": stats[name]["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": None,
-            "shape": f"{t['rows']} rows, {op}",
-            "timings": {o: timings[o] for o in ("mont_mul", "add", "sub",
-                                                "neg", "host_us")
-                        if (o == "mont_mul") == (name == "mont_mul")},
+            "shape": described,
+            "timings": {o: timings[o] for o in kept},
         }
 
     kernels = [
         entry("mont_mul", "harmony_tpu_torch/csrc/mont_mul.cu",
-              "harmony_tpu/ops/fp_pallas.py:35", "mont_mul"),
+              "harmony_tpu/ops/fp_pallas.py:35", "mont_mul", "2^16",
+              "65536 rows, mont_mul", ("mont_mul", "host_us")),
         entry("fp_addsub", "harmony_tpu_torch/csrc/fp_addsub.cu",
               "none: fuses harmony_tpu/ops/fp.py:121-139 (jnp, fused by XLA)",
-              "add"),
+              "add", "2^16", "65536 rows, add", ("add", "sub", "neg")),
+        entry("fp12_mul", "harmony_tpu_torch/csrc/fp12_mul.cu",
+              "none: fuses harmony_tpu/ops/towers.py:212 (jnp, fused by XLA)",
+              "fp12_mul", "2x64 lanes",
+              "128 lanes, the stacked (2, 64) Miller shape", ("fp12_mul",)),
+        entry("fp12_cyclo_sqr", "harmony_tpu_torch/csrc/fp12_cyclo_sqr.cu",
+              "none: fuses harmony_tpu/ops/towers.py:255 (jnp, fused by XLA)",
+              "fp12_cyclo_sqr", "1 lanes, n = 32",
+              "1 lane, 32 squarings (a quorum check's longest run)",
+              ("fp12_cyclo_sqr",)),
     ]
+    log(f"chip_smoke took {time.perf_counter() - started:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

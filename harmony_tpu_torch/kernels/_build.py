@@ -4,7 +4,7 @@ Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` for sm_90a,
 all started together, and the objects are linked into ONE shared library
 with a plain C interface, bound with ``ctypes``.  The build runs at first
 use, from the sources in the checkout, into ``harmony_tpu_torch/_build/``
-(git-ignored), and again whenever a source, the shared header, the flags
+(git-ignored), and again whenever a source, a shared header, the flags
 or the constants change: the library's name carries their hash.  A failed
 build or launch raises; nothing falls back to a plain version.
 
@@ -15,6 +15,7 @@ The modulus reaches the kernels through a header generated here from
 
 import ctypes
 import hashlib
+import math
 import os
 import subprocess
 import tempfile
@@ -28,8 +29,9 @@ from ..ops.limbs import N_LIMBS
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = (CSRC / "mont_mul.cu", CSRC / "fp_addsub.cu")
-HEADERS = (CSRC / "fp384.cuh",)
+SOURCES = (CSRC / "mont_mul.cu", CSRC / "fp_addsub.cu", CSRC / "fp12_mul.cu",
+           CSRC / "fp12_cyclo_sqr.cu")
+HEADERS = (CSRC / "fp384.cuh", CSRC / "fp12.cuh")
 BUILD_DIR = _PKG / "_build"
 
 # p as 12 little-endian words of 32 bits, and -p^-1 mod 2^32
@@ -39,9 +41,27 @@ P_INV32 = -pow(C.P_INT, -1, 1 << 32) % (1 << 32)
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC"]
 
-# C entry points: name -> number of tensor pointers before (rows, stream)
-_ENTRY_POINTS = {"harmony_mont_mul": 3, "harmony_fp_add": 3,
-                 "harmony_fp_sub": 3, "harmony_fp_neg": 2}
+# What the kernels take: rows of limbs (one Fp element), or lanes of 12
+# such rows (one Fp12 element, ops/__init__.py)
+FP = (N_LIMBS,)
+FP12 = (2, 3, 2, N_LIMBS)
+
+
+def _signature(n_ptrs, *extra):
+    """ctypes argtypes of an entry point: its tensor pointers (inputs,
+    then the output), the count of rows or lanes, ``extra`` scalars, and
+    the stream."""
+    return ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int64, *extra,
+                                          ctypes.c_void_p])
+
+
+# C entry points and their arguments
+_ENTRY_POINTS = {"harmony_mont_mul": _signature(3),
+                 "harmony_fp_add": _signature(3),
+                 "harmony_fp_sub": _signature(3),
+                 "harmony_fp_neg": _signature(2),
+                 "harmony_fp12_mul": _signature(3),
+                 "harmony_fp12_cyclo_sqr": _signature(2, ctypes.c_int32)}
 
 _lib = None
 _lock = threading.Lock()
@@ -105,27 +125,31 @@ def build() -> ctypes.CDLL:
                            *map(str, objs)]])
                 os.replace(linked, so)
         lib = ctypes.CDLL(str(so))
-        for name, n_ptrs in _ENTRY_POINTS.items():
+        for name, argtypes in _ENTRY_POINTS.items():
             fn = getattr(lib, name)
-            fn.argtypes = ([ctypes.c_void_p] * n_ptrs
-                           + [ctypes.c_int64, ctypes.c_void_p])
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
 
 
-# The launch path below runs some 26,000 times per quorum check, and its
-# host time is most of the check's: it is written out per arity and asks
+# The launch path below runs some 5,300 times per quorum check, and its
+# host time is much of the check's: it is written out per arity and asks
 # each tensor only what it must.
 
 
-def _refuse(entry: str, *xs: torch.Tensor) -> None:
+def _refuse(entry: str, tail: tuple, *xs: torch.Tensor) -> None:
     """Raise the error that fits operands the kernel does not take."""
     if any(x.dtype is not torch.int32 for x in xs):
         raise TypeError(f"{entry} takes int32, got {[x.dtype for x in xs]}")
     got = [(tuple(x.shape), str(x.device)) for x in xs]
-    raise ValueError(f"{entry} takes (..., {N_LIMBS}) limbs on one CUDA "
-                     f"device, got {got}")
+    raise ValueError(f"{entry} takes (..., {', '.join(map(str, tail))}) "
+                     f"limbs on one CUDA device, got {got}")
+
+
+def _takes(a: torch.Tensor, tail: tuple) -> bool:
+    """Whether a's trailing axes are ``tail``."""
+    return a.dim() >= len(tail) and a.shape[a.dim() - len(tail):] == tail
 
 
 def _ready(x: torch.Tensor) -> torch.Tensor:
@@ -139,18 +163,19 @@ def _ready(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _launch(entry: str, out: torch.Tensor, *ptrs: int) -> None:
-    """Launch C entry point ``entry`` on the current stream of ``out``'s
-    device, without synchronising; raise on a non-zero
-    ``cudaGetLastError``."""
+def _launch(entry: str, out: torch.Tensor, count: int, ptrs: tuple,
+            extra: tuple = ()) -> None:
+    """Launch C entry point ``entry`` on ``count`` rows or lanes, on the
+    current stream of ``out``'s device, without synchronising; raise on a
+    non-zero ``cudaGetLastError``."""
     fn = getattr(_lib or build(), entry)
-    rows = out.numel() // N_LIMBS
     index = out.get_device()
     if index == torch.cuda.current_device():
-        err = fn(*ptrs, out.data_ptr(), rows, _raw_stream(index))
+        err = fn(*ptrs, out.data_ptr(), count, *extra, _raw_stream(index))
     else:
         with torch.cuda.device(index):
-            err = fn(*ptrs, out.data_ptr(), rows, _raw_stream(index))
+            err = fn(*ptrs, out.data_ptr(), count, *extra,
+                     _raw_stream(index))
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
@@ -161,33 +186,38 @@ def _raw_stream(index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-def binary(entry: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``entry`` on two (..., 32) int32 limb tensors on one CUDA device,
-    broadcast against each other, into a new tensor.  Zero rows launch
+def binary(entry: str, a: torch.Tensor, b: torch.Tensor,
+           tail: tuple = FP) -> torch.Tensor:
+    """``entry`` on two (..., *tail) int32 limb tensors on one CUDA
+    device, broadcast against each other, into a new tensor: one row
+    (``FP``) or lane (``FP12``) per element of the leading axes.  The
+    same tensor twice is passed once, uncopied.  Zero rows launch
     nothing."""
     if (a.dtype is not torch.int32 or b.dtype is not torch.int32
             or not a.is_cuda or not b.is_cuda
             or a.get_device() != b.get_device()):
-        _refuse(entry, a, b)
+        _refuse(entry, tail, a, b)
     if a.shape != b.shape:
         a, b = torch.broadcast_tensors(a, b)
-    if a.dim() == 0 or a.shape[-1] != N_LIMBS:
-        _refuse(entry, a, b)
-    a, b = _ready(a), _ready(b)
+    if not _takes(a, tail):
+        _refuse(entry, tail, a, b)
+    a, b = (_ready(a),) * 2 if a is b else (_ready(a), _ready(b))
     out = torch.empty_like(a)
     if out.numel():
-        _launch(entry, out, a.data_ptr(), b.data_ptr())
+        _launch(entry, out, out.numel() // math.prod(tail),
+                (a.data_ptr(), b.data_ptr()))
     return out
 
 
-def unary(entry: str, a: torch.Tensor) -> torch.Tensor:
-    """``entry`` on one (..., 32) int32 limb tensor on a CUDA device, as
-    ``binary``."""
-    if (a.dtype is not torch.int32 or not a.is_cuda or a.dim() == 0
-            or a.shape[-1] != N_LIMBS):
-        _refuse(entry, a)
+def unary(entry: str, a: torch.Tensor, tail: tuple = FP,
+          extra: tuple = ()) -> torch.Tensor:
+    """``entry`` on one (..., *tail) int32 limb tensor on a CUDA device,
+    with ``extra`` scalar arguments, as ``binary``."""
+    if a.dtype is not torch.int32 or not a.is_cuda or not _takes(a, tail):
+        _refuse(entry, tail, a)
     a = _ready(a)
     out = torch.empty_like(a)
     if out.numel():
-        _launch(entry, out, a.data_ptr())
+        _launch(entry, out, out.numel() // math.prod(tail), (a.data_ptr(),),
+                extra)
     return out

@@ -11,7 +11,8 @@ the same as the JAX package's:
     G2   : int32[..., 3, 2, 32]    Jacobian (X, Y, Z) over Fp2
 
 All ops are batched over leading axes and run on the device their input
-tensors lie on.  Every Fp product goes through ops/fp.py ``mont_mul``:
-the hand-written CUDA kernel for a CUDA tensor, its plain PyTorch version
-for a CPU tensor.
+tensors lie on.  Every Fp product goes through ops/fp.py ``mont_mul``,
+and the Fp12 product, square and cyclotomic squarings through
+ops/towers.py: a hand-written CUDA kernel for a CUDA tensor, its plain
+PyTorch version for a CPU tensor.
 """

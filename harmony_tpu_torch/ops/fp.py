@@ -17,8 +17,9 @@ The same arithmetic as the JAX package's ops/fp.py, limb for limb:
 
 All functions are shape-polymorphic over leading batch axes and run on
 the device of their inputs; tower fields (ops/towers.py) stack their
-independent sub-products into one call (54 Fp products per Fp12 product,
-one kernel launch).
+independent sub-products into one call (54 Fp products per Fp12 product
+in the plain composition; on the card the Fp12 operations are fused
+kernels of their own).
 """
 
 import torch

@@ -14,7 +14,8 @@ ops/pairing.py, step for step:
 - Final exponentiation to the power 3 (p^12 - 1)/r: the CUBED pairing,
   as in the JAX package and its bigint reference.  Easy part by
   conjugate / inverse / Frobenius^2, hard part by the x-chain with
-  cyclotomic squarings.
+  cyclotomic squarings, one run of squarings per call (the JAX
+  package's fori_loop inside its scan; on the card, one kernel launch).
 
 Batching: points are batched over leading axes; products of pairings
 (the aggregate-verify shape) share one final exponentiation.
@@ -166,8 +167,7 @@ def _cyclo_pow_abs(a, sched):
     only for unitary a (everything after the easy part)."""
     acc = a
     for n_sqr, do_mul in zip(*sched):
-        for _ in range(n_sqr):
-            acc = T.fp12_cyclo_sqr(acc)
+        acc = T.fp12_cyclo_sqr_n(acc, n_sqr)  # one launch on the card
         if do_mul:
             acc = T.fp12_mul(acc, a)
     return acc

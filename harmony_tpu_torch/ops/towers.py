@@ -8,9 +8,16 @@ Tower (the same as the JAX package's and ref/fields.py):
 
 Every mul at every level is Karatsuba with *independent* sub-products,
 written shape-polymorphically, so the sub-products stack onto a new
-leading axis.  A single Fp12 multiplication therefore reaches ops/fp.py
-as ONE mont_mul call on a (3, 6, 3, ..., 32) stack: 54 Fp products in
-one kernel launch instead of 54 small ones.
+leading axis.  A single Fp12 multiplication in the plain composition
+therefore reaches ops/fp.py as ONE mont_mul call on a (3, 6, 3, ..., 32)
+stack: 54 Fp products in one call instead of 54 small ones.
+
+``fp12_mul``, ``fp12_sqr``, ``fp12_cyclo_sqr`` and ``fp12_cyclo_sqr_n``
+dispatch on their tensors' device, as ops/fp.py ``mont_mul`` does: a CUDA
+tensor launches one fused kernel for the whole operation
+(kernels/fp12_mul.py, kernels/fp12_cyclo_sqr.py), which raises if it
+cannot; a CPU tensor runs the plain composition, ``fp12_mul_reference``,
+``fp12_sqr_reference`` and ``fp12_cyclo_sqr_reference``.
 
 Montgomery domain throughout.  Functions that create tensors take the
 device explicitly; the others run where their inputs lie.
@@ -19,6 +26,8 @@ device explicitly; the others run where their inputs lie.
 import numpy as np
 import torch
 
+from ..kernels import fp12_cyclo_sqr as K_CYCLO
+from ..kernels import fp12_mul as K_FP12
 from . import _constants as C
 from . import fp
 
@@ -188,6 +197,14 @@ def fp12_sub(a, b):
 
 
 def fp12_mul(a, b):
+    """The Fp12 product: one fused kernel launch for CUDA tensors, the
+    plain composition for CPU tensors."""
+    if a.is_cpu and b.is_cpu:
+        return fp12_mul_reference(a, b)
+    return K_FP12.fp12_mul(a, b)
+
+
+def fp12_mul_reference(a, b):
     """Karatsuba-2 over Fp6: 3 stacked Fp6 muls = one 54-product call."""
     a, b = torch.broadcast_tensors(a, b)
     a0, a1 = _split12(a)
@@ -201,6 +218,14 @@ def fp12_mul(a, b):
 
 
 def fp12_sqr(a):
+    """The Fp12 square, dispatched as ``fp12_mul``; on the card it is the
+    fused product kernel on (a, a)."""
+    if a.is_cpu:
+        return fp12_sqr_reference(a)
+    return K_FP12.fp12_mul(a, a)
+
+
+def fp12_sqr_reference(a):
     """Complex-method squaring: (a0 + a1 w)^2 with w^2 = v needs only
     TWO Fp6 products (vs three for a general mul):
 
@@ -228,6 +253,22 @@ def fp12_conj(a):
 
 
 def fp12_cyclo_sqr(a):
+    """One cyclotomic squaring, dispatched as ``fp12_mul``."""
+    return fp12_cyclo_sqr_n(a, 1)
+
+
+def fp12_cyclo_sqr_n(a, n):
+    """``n`` cyclotomic squarings in a row, a^(2^n) for unitary a: one
+    fused kernel launch for a CUDA tensor, ``n`` calls of
+    ``fp12_cyclo_sqr_reference`` for a CPU tensor."""
+    if not a.is_cpu:
+        return K_CYCLO.fp12_cyclo_sqr_n(a, n)
+    for _ in range(n):
+        a = fp12_cyclo_sqr_reference(a)
+    return a
+
+
+def fp12_cyclo_sqr_reference(a):
     """Granger-Scott squaring for UNITARY elements (the cyclotomic
     subgroup every final-exp intermediate lives in after the easy part):
     9 Fp2 squarings in ONE stacked mont_mul — 18 Fp products vs the 36

@@ -18,6 +18,8 @@ from harmony_tpu.ops import towers as JT
 from harmony_tpu.ref import curve as RC
 from harmony_tpu.ref import fields as RF
 from harmony_tpu.ref.params import P, R_ORDER
+from harmony_tpu_torch.kernels import fp12_cyclo_sqr as KC
+from harmony_tpu_torch.kernels import fp12_mul as KM
 from harmony_tpu_torch.ops import curve as TCV
 from harmony_tpu_torch.ops import interop as TI
 from harmony_tpu_torch.ops import towers as TT
@@ -123,6 +125,49 @@ def test_tower_op_matches_bigint(name):
 def test_cyclo_sqr_equals_generic_square_on_cyclotomic_input():
     u = torch.from_numpy(U12)
     _same(TT.fp12_cyclo_sqr(u), TT.fp12_sqr(u).numpy())
+
+
+_FUSED = {
+    "fp12_mul": (lambda a: TT.fp12_mul(a, a.flip(0)), "fp12_mul_reference",
+                 lambda a: TT.fp12_mul_reference(a, a.flip(0))),
+    "fp12_sqr": (TT.fp12_sqr, "fp12_sqr_reference", TT.fp12_sqr_reference),
+    "fp12_cyclo_sqr": (TT.fp12_cyclo_sqr, "fp12_cyclo_sqr_reference",
+                       TT.fp12_cyclo_sqr_reference),
+    "fp12_cyclo_sqr_n": (lambda a: TT.fp12_cyclo_sqr_n(a, 3),
+                         "fp12_cyclo_sqr_reference",
+                         lambda a: TT.fp12_cyclo_sqr_reference(
+                             TT.fp12_cyclo_sqr_reference(
+                                 TT.fp12_cyclo_sqr_reference(a)))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_FUSED))
+def test_cpu_tower_ops_take_the_plain_versions_and_launch_nothing(
+        name, monkeypatch):
+    fn, plain_name, plain = _FUSED[name]
+    u = torch.from_numpy(U12)
+    want = plain(u)
+    calls = []
+    real = getattr(TT, plain_name)
+    monkeypatch.setattr(TT, plain_name,
+                        lambda *xs: calls.append(1) or real(*xs))
+    before = (KM.LAUNCHES, KC.LAUNCHES)
+    _same(fn(u), want.numpy())
+    assert calls
+    assert (KM.LAUNCHES, KC.LAUNCHES) == before
+
+
+def test_fused_kernels_refuse_cpu_tensors_wrong_dtypes_and_shapes():
+    u = torch.from_numpy(U12)
+    for fn, args in ((KM.fp12_mul, (u, u)),
+                     (lambda a: KC.fp12_cyclo_sqr_n(a, 2), (u,))):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args)
+        with pytest.raises(TypeError, match="int32"):
+            fn(*(x.long() for x in args))
+    with pytest.raises(ValueError, match="squarings"):
+        KC.fp12_cyclo_sqr_n(u, -1)
+    assert (KM.LAUNCHES, KC.LAUNCHES) == (0, 0)
 
 
 # --- curve -----------------------------------------------------------------
