@@ -5,9 +5,10 @@
 
 Run from the root of a checkout on a machine with one CUDA card.  It
 
-1. prints the card's name and power limit and builds the four CUDA
+1. prints the card's name and power limit and builds the six CUDA
    kernels (harmony_tpu_torch/csrc/mont_mul.cu, fp_addsub.cu,
-   fp12_mul.cu and fp12_cyclo_sqr.cu, one library) from the checkout;
+   fp12_mul.cu, fp12_cyclo_sqr.cu, miller_loop.cu and fp_inv.cu, one
+   library) from the checkout;
 2. holds each kernel against its plain PyTorch version on the card, bit
    for bit, at the shapes the verify path gives it and on edge cases;
    times both with the wrapper, and each kernel alone on the device
@@ -16,8 +17,9 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    mainnet width (a 200-slot committee, bucket 256): one quorum
    certificate and its forgeries, a replay batch of 64 headers, 8
    single checks and one check from payload bytes, each verdict as
-   constructed; it shows that every entry point went through all four
-   kernels and counts the other tensor ops each call issues;
+   constructed; it shows that every entry point went through all six
+   kernels, holds one quorum check to its launch limits, and counts the
+   other tensor ops each call issues;
 4. holds a pairing product on the card against the CPU plain path, and
    profiles one Fp12 product and one quorum check (wall time against
    device time, split by kernel);
@@ -30,8 +32,10 @@ and prints no result.  Keys, payloads and signatures come from --seed.
 """
 
 import argparse
+import collections
 import contextlib
 import json
+import math
 import random
 import subprocess
 import sys
@@ -51,13 +55,25 @@ INT32_OPS_PER_S = 16.75e12
 # the product, and makes 54 Montgomery products; fp12_cyclo_sqr reads and
 # writes one lane whatever the count n of squarings, and makes 18
 # Montgomery products per squaring (its operations are per squaring).
-# The adds and subs around the products are left out of the towers'
+# Per lane, miller_loop reads P (2 rows) and Q (4 rows) and writes f (12
+# rows), and makes the plain loop's products, the fewest of its parts:
+# per doubling 36 for f^2 (the complex method of
+# harmony_tpu_torch/ops/towers.py fp12_sqr_reference), 54 for f times the
+# line and 34 for the step, per addition 54 + 44: 63 x 124 + 5 x 98
+# products (a sparse line product would need fewer; the kernel makes
+# 9,436, squaring by the 54-product plan).  Per row,
+# fp_inv reads a and writes its inverse, and makes 380 squarings and 228
+# products.  The adds and subs around the products are left out of the
 # operations: a few per cent more.
 MONT_IMAD = 2 * 288
+MILLER_PRODUCTS = 63 * (36 + 54 + 34) + 5 * (54 + 44)
+INV_PRODUCTS = 380 + 228
 WORK = {"mont_mul": (3 * 128, MONT_IMAD), "add": (3 * 128, 3 * 12),
         "sub": (3 * 128, 3 * 12), "neg": (2 * 128, 3 * 12),
         "fp12_mul": (3 * 12 * 128, 54 * MONT_IMAD),
-        "fp12_cyclo_sqr": (2 * 12 * 128, 18 * MONT_IMAD)}
+        "fp12_cyclo_sqr": (2 * 12 * 128, 18 * MONT_IMAD),
+        "miller_loop": ((2 + 4 + 12) * 128, MILLER_PRODUCTS * MONT_IMAD),
+        "fp_inv": (2 * 128, INV_PRODUCTS * MONT_IMAD)}
 
 # Rows per call at the shapes timed: one fp12_mul at 64 lanes (54 products
 # x 64), 2^16, and the largest call the slice makes.  That is the first
@@ -72,6 +88,25 @@ LARGEST_ROWS = {"mont_mul": 4 * 128 * 64, "fp_addsub": 128 * 64}
 FP12_LANES = {"1": 1, "2": 2, "2x64": 128}
 # the runs of squarings of |x|'s and |x - 1|'s schedules
 CYCLO_RUNS = (1, 2, 3, 9, 16, 32)
+# Miller-loop lanes at the path's shapes: a quorum check's two pairings,
+# and the 64-header batch's 2 x 64.  fp_inv is checked at 1, 3 and 3,456
+# rows, and timed at the path's: 1 (each of a quorum check's two
+# inversions) and 64 (the batch's aggregate keys made affine).
+MILLER_LANES = {"2": (2,), "2x64": (2, 64)}
+INV_ROWS = (1, 3, 3456)
+INV_TIMED_ROWS = (1, 64)
+# what one quorum check may launch, now that the Miller loop and the
+# Fermat inversions are one launch each
+QC_LAUNCHES = {"miller_loop": (1, 1), "fp_inv": (2, 2),
+               "fp_addsub": (0, 400), "mont_mul": (0, 150),
+               "fp12_mul": (0, 40), "fp12_cyclo_sqr": (0, 40)}
+
+# the functions of the path to which count_ops assigns launches and ops,
+# the innermost on the stack winning
+SOURCES = ("masked_sum", "to_affine", "miller_loop", "fp12_tree_reduce",
+           "final_exponentiation", "verify", "agg_verify",
+           "agg_verify_batch", "agg_verify_hashed_on_device",
+           "agg_verify_batch_on_device", "verify_many_on_device")
 
 COMMITTEE = 200  # Harmony mainnet: 200 slots per shard (epoch >= 1673)
 QUORUM = 150
@@ -122,17 +157,19 @@ def canonical_limbs(rng, shape):
     return limbs
 
 
-KERNELS = ("mont_mul", "fp_addsub", "fp12_mul", "fp12_cyclo_sqr")
+KERNELS = ("mont_mul", "fp_addsub", "fp12_mul", "fp12_cyclo_sqr",
+           "miller_loop", "fp_inv")
 
 
 def wrappers():
     """Each kernel's wrapper module, by kernel name; each counts its
     launches in ``LAUNCHES``."""
     from harmony_tpu_torch.kernels import fp12_cyclo_sqr, fp12_mul, \
-        fp_addsub, mont_mul
+        fp_addsub, fp_inv, miller_loop, mont_mul
 
     return {"mont_mul": mont_mul, "fp_addsub": fp_addsub,
-            "fp12_mul": fp12_mul, "fp12_cyclo_sqr": fp12_cyclo_sqr}
+            "fp12_mul": fp12_mul, "fp12_cyclo_sqr": fp12_cyclo_sqr,
+            "miller_loop": miller_loop, "fp_inv": fp_inv}
 
 
 def launches():
@@ -143,6 +180,22 @@ def symbol(name):
     """What the profiler calls a kernel: ``<name>_kernel`` (no name is a
     part of another's symbol)."""
     return f"{name}_kernel"
+
+
+def ptxas_report():
+    """Each kernel's registers, stack frame, spills and shared memory, as
+    ptxas reported them when kernels/_build.py compiled the library."""
+    from harmony_tpu_torch.kernels import _build
+
+    out, kernel = {}, None
+    for line in _build.report_path().read_text().splitlines():
+        if "Compiling entry function" in line:
+            kernel = next((k for k in KERNELS if symbol(k) in line), None)
+        elif kernel and ("stack frame" in line or "Used" in line):
+            out.setdefault(kernel, []).append(
+                line.split(":", 1)[-1].strip())
+    check(set(out) == set(KERNELS), f"ptxas reported {sorted(out)}")
+    return {k: "; ".join(v) for k, v in out.items()}
 
 
 def profiled(fn, reps, activities=("CUDA",)):
@@ -410,22 +463,35 @@ def timing_phase(seed):
 
 @contextlib.contextmanager
 def plain_fp():
-    """Within: the Fp operations of ops/fp.py are their plain PyTorch
-    versions, so the towers' plain compositions (``*_reference``) run on
-    the card without a hand kernel, as the plain versions the fused
-    kernels are held against and timed beside."""
+    """Within: the dispatchers of ops/fp.py, ops/towers.py and
+    ops/pairing.py are their plain PyTorch versions, so the plain
+    compositions (``*_reference``) run on the card without a hand
+    kernel, as the plain versions the fused kernels are held against and
+    timed beside.  Checks that no hand kernel launched."""
     from harmony_tpu_torch.ops import fp
+    from harmony_tpu_torch.ops import pairing as PR
+    from harmony_tpu_torch.ops import towers as T
 
-    names = ("add", "sub", "neg", "mont_mul")
-    saved = {n: getattr(fp, n) for n in names}
+    def cyclo_sqr_n(a, n):
+        for _ in range(n):
+            a = T.fp12_cyclo_sqr_reference(a)
+        return a
+
+    swaps = [(fp, n, getattr(fp, f"{n}_reference"))
+             for n in ("add", "sub", "neg", "mont_mul", "inv")]
+    swaps += [(T, "fp12_mul", T.fp12_mul_reference),
+              (T, "fp12_sqr", T.fp12_sqr_reference),
+              (T, "fp12_cyclo_sqr_n", cyclo_sqr_n),
+              (PR, "miller_loop", PR.miller_loop_reference)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     before = launches()
     try:
-        for n in names:
-            setattr(fp, n, getattr(fp, f"{n}_reference"))
+        for m, n, f in swaps:
+            setattr(m, n, f)
         yield
     finally:
-        for n, f in saved.items():
-            setattr(fp, n, f)
+        for m, n, f in saved:
+            setattr(m, n, f)
     check(launches() == before, "a plain version launched a hand kernel")
 
 
@@ -593,6 +659,146 @@ def tower_timing_phase(seed):
     return timings
 
 
+def miller_phase(seed, stats):
+    """The miller_loop kernel against the plain loop on the card, bit for
+    bit, every case against plain PyTorch (no hand kernel launched): a
+    quorum check's 2 lanes, the batch's 2 x 64 lanes (there also against
+    the composition over the Fp and Fp12 kernels, the path before the
+    kernel), lanes of infinity (0, 0) as verify's padded and forged lanes
+    give it, a broadcast operand and strided views."""
+    import numpy as np
+    import torch
+
+    from harmony_tpu_torch.kernels import miller_loop as KML
+    from harmony_tpu_torch.ops import interop as I
+    from harmony_tpu_torch.ops import pairing as PR
+    from harmony_tpu_torch.ref.curve import G1_GEN, G2_GEN, g1, g2
+    from harmony_tpu_torch.ref.params import R_ORDER
+
+    rng = np.random.default_rng(seed + 8)
+    prng = random.Random(seed + 8)
+    ps = torch.stack([I.g1_affine_to_arr(g1.mul(G1_GEN, prng.randrange(
+        1, R_ORDER))) for _ in range(3)]).cuda()
+    qs = torch.stack([I.g2_affine_to_arr(g2.mul(G2_GEN, prng.randrange(
+        1, R_ORDER))) for _ in range(3)]).cuda()
+
+    def compare(name, p, q, composed=False):
+        got = KML.miller_loop(p, q)
+        # the plain loop takes P and Q with the same leading axes
+        p = p.expand(*q.shape[:-3], *p.shape[-2:])
+        with plain_fp():
+            want = PR.miller_loop_reference(p, q)
+        _compare(f"miller_loop, {name}, against plain PyTorch", got, want,
+                 stats)
+        if composed:
+            _compare(f"miller_loop, {name}, against the composition over "
+                     f"the Fp and Fp12 kernels", got,
+                     PR.miller_loop_reference(p, q), stats)
+
+    compare("2 pairs", ps[:2], qs[:2])
+    compare("2 x 64 lanes", torch.from_numpy(canonical_limbs(
+        rng, (2, 64, 2))).cuda(), torch.from_numpy(canonical_limbs(
+            rng, (2, 64, 2, 2))).cuda(), composed=True)
+    zp, zq = torch.zeros_like(ps[0]), torch.zeros_like(qs[0])
+    compare("lanes of infinity: (P, 0), (0, Q), (0, 0), (P, Q)",
+            torch.stack([ps[0], zp, zp, ps[1]]),
+            torch.stack([zq, qs[0], zq, qs[1]]))
+    q16 = torch.from_numpy(canonical_limbs(rng, (16, 2, 2))).cuda()
+    compare("one P broadcast against 16 Q", ps[2:3], q16)
+    compare("an expanded P (stride 0), as verify builds -G1",
+            ps[2].expand(16, 2, 32), q16)
+    p8 = torch.from_numpy(canonical_limbs(rng, (8, 2))).cuda()
+    q8 = torch.from_numpy(canonical_limbs(rng, (8, 2, 2))).cuda()
+    compare("strided views (alternate lanes)", p8[::2], q8[1::2])
+
+
+def inv_phase(seed, stats):
+    """The fp_inv kernel against the plain Fermat chain (plain PyTorch on
+    the card, no hand kernel launched), bit for bit, at 1, 3 and 3,456
+    rows with 0, 1 and p - 1 among them; the rows also against the host
+    bigint."""
+    import torch
+
+    from harmony_tpu_torch.kernels import fp_inv as KI
+    from harmony_tpu_torch.ops import fp
+    from harmony_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_int
+    from harmony_tpu_torch.ref.params import P
+
+    prng = random.Random(seed + 9)
+    r_mont = 1 << 384
+    for rows in INV_ROWS:
+        xs = [prng.randrange(P)] if rows == 1 else (
+            [0, 1, P - 1] + [prng.randrange(P) for _ in range(rows - 3)])
+        a = torch.from_numpy(ints_to_limbs([x * r_mont % P for x in xs]))
+        got = KI.inv(a.cuda())
+        with plain_fp():
+            want = fp.inv_reference(a.cuda())
+        _compare(f"fp_inv, {rows} rows", got, want, stats)
+        got = got.cpu().numpy()
+        for i in (range(rows) if rows < 8 else
+                  [0, 1, 2] + prng.sample(range(3, rows), 8)):
+            check(limbs_to_int(got[i])
+                  == pow(xs[i], P - 2, P) * r_mont % P,
+                  f"fp_inv, {rows} rows, row {i}: kernel differs from the "
+                  f"host bigint")
+    log("fp_inv kernel == host bigint a^(p-2) on the rows checked")
+
+
+def loop_timing_phase(seed):
+    """miller_loop and fp_inv at the path's shapes: wrapper-inclusive ms
+    by CUDA events, the kernel's own device time by torch.profiler, the
+    plain version's ms (plain PyTorch on the card), the ms of the
+    composition over the Fp and Fp12 kernels that the kernel replaced,
+    the bound, and the wrapper's host cost per call."""
+    import numpy as np
+    import torch
+
+    from harmony_tpu_torch.kernels import fp_inv as KI
+    from harmony_tpu_torch.kernels import miller_loop as KML
+    from harmony_tpu_torch.ops import fp
+    from harmony_tpu_torch.ops import pairing as PR
+
+    rng = np.random.default_rng(seed + 10)
+    timings = {"miller_loop": {}, "fp_inv": {}}
+
+    def plain(fn):
+        def run():
+            with plain_fp():
+                return fn()
+        return run
+
+    cases = []
+    for shape, lead in MILLER_LANES.items():
+        p = torch.from_numpy(canonical_limbs(rng, (*lead, 2))).cuda()
+        q = torch.from_numpy(canonical_limbs(rng, (*lead, 2, 2))).cuda()
+        cases.append(("miller_loop", f"{shape} lanes", math.prod(lead),
+                      lambda p=p, q=q: KML.miller_loop(p, q),
+                      lambda p=p, q=q: PR.miller_loop_reference(p, q)))
+    for rows in INV_TIMED_ROWS:
+        a = torch.from_numpy(canonical_limbs(rng, (rows,))).cuda()
+        cases.append(("fp_inv", f"{rows} rows", rows,
+                      lambda a=a: KI.inv(a),
+                      lambda a=a: fp.inv_reference(a)))
+    for op, shape, n, kernel, composed in cases:
+        bound_ms, bound_by = bound(op, n)
+        t = timings[op][shape] = {
+            "lanes" if op == "miller_loop" else "rows": n,
+            "ms": cuda_ms(kernel, 20),
+            "device_ms": 1e-3 * device_us(kernel, op, 10),
+            "plain_ms": cuda_ms(plain(composed), 1),
+            "composed_ms": cuda_ms(composed, 2),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "host_us_per_call": host_us(kernel, 200),
+        }
+        log(f"{op} at {shape}: {t['ms']:.6f} ms with the wrapper, "
+            f"{t['device_ms']:.6f} ms on the device, plain "
+            f"{t['plain_ms']:.6f} ms, composed over the Fp and Fp12 "
+            f"kernels {t['composed_ms']:.6f} ms, bound {bound_ms:.6f} ms "
+            f"({bound_by}), host {t['host_us_per_call']:.3f} us per call")
+    return timings
+
+
 def build_committee(rng):
     """200 keys cheaply: sk_i = sk_0 + i*delta, pk_i = pk_(i-1) + delta*G1."""
     from harmony_tpu_torch.ref.curve import G1_GEN, g1
@@ -614,16 +820,34 @@ def agg_sign(sks, bits, h):
     return g2.mul(h, sum(sk for sk, b in zip(sks, bits) if b) % R_ORDER)
 
 
+def _source():
+    """The innermost function of the path (SOURCES) on the caller's
+    stack."""
+    frame = sys._getframe(1)
+    while frame is not None:
+        if frame.f_code.co_name in SOURCES:
+            return frame.f_code.co_name
+        frame = frame.f_back
+    return "other"
+
+
 def count_ops(fn, *args):
-    """(result, tensor ops) of one call: the ATen operators it dispatches,
-    views left out.  A ``contiguous`` that copies counts, though ATen
-    marks the operator as a view.  Most ops launch a kernel on the card;
-    an allocation (``empty_like``) launches none.  The hand-written kernels
-    go through ctypes and are counted apart."""
+    """(result, tensor ops, by source) of one call: the ATen operators it
+    dispatches, views left out.  A ``contiguous`` that copies counts,
+    though ATen marks the operator as a view.  Most ops launch a kernel on
+    the card; an allocation (``empty_like``) launches none.  The
+    hand-written kernels go through ctypes and are counted apart.  By
+    source: the hand kernels' launches (counted where every wrapper
+    launches, ``_build._launch``) and the other ops, by the innermost
+    function of the path that issued them."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
+    from harmony_tpu_torch.kernels import _build
+
     contiguous = torch.ops.aten.contiguous.default
+    # per source: other ops, and launches by C entry point
+    by_source = collections.defaultdict(collections.Counter)
 
     class Count(TorchDispatchMode):
         n = 0
@@ -632,26 +856,58 @@ def count_ops(fn, *args):
             if not func.is_view or (func is contiguous
                                     and not args[0].is_contiguous()):
                 self.n += 1
+                by_source[_source()]["ops"] += 1
             return func(*args, **(kwargs or {}))
 
+    launch = _build._launch
+
+    def counted_launch(entry, *a, **k):
+        by_source[_source()][entry.removeprefix("harmony_")] += 1
+        return launch(entry, *a, **k)
+
     mode = Count()
-    with mode:
-        out = fn(*args)
-    return out, mode.n
+    before = launches()
+    _build._launch = counted_launch
+    try:
+        with mode:
+            out = fn(*args)
+    finally:
+        _build._launch = launch
+    made = sum(launches().values()) - sum(before.values())
+    check(sum(c.total() - c["ops"] for c in by_source.values()) == made,
+          "the launches by source miss some of the call's launches")
+    return out, mode.n, dict(by_source)
 
 
 def timed(fn, *args):
-    """(result, wall ms, launches of each kernel) of one call; every entry
-    point returns host bools, so the call has finished on the card."""
+    """(result, wall ms, launches of each kernel, ms waited) of one call;
+    every entry point returns host bools, so the call has finished on the
+    card.  The ms waited are spent in ``Tensor.cpu``, where the host waits
+    for the card to finish the work it has been given: the device's tail
+    after the host issued its last launch."""
     import torch
+
+    waited = []
+    to_cpu = torch.Tensor.cpu
+
+    def timed_cpu(self, *a, **k):
+        t = time.perf_counter()
+        out = to_cpu(self, *a, **k)
+        waited.append(time.perf_counter() - t)
+        return out
 
     torch.cuda.synchronize()
     before = launches()
-    t0 = time.perf_counter()
-    out = fn(*args)
-    torch.cuda.synchronize()
-    ms = 1e3 * (time.perf_counter() - t0)
-    return out, ms, {k: n - before[k] for k, n in launches().items()}
+    torch.Tensor.cpu = timed_cpu
+    try:
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        torch.Tensor.cpu = to_cpu
+    return (out, ms, {k: n - before[k] for k, n in launches().items()},
+            1e3 * sum(waited))
 
 
 def slice_phase(seed):
@@ -670,7 +926,7 @@ def slice_phase(seed):
     hashes = [hash_to_g2(p) for p in payloads]
     log(f"host set-up (200 keys, {len(payloads)} payloads hashed) "
         f"{time.perf_counter() - t0:.3f} s")
-    results = {}
+    results, sources = {}, {}
 
     # one commit quorum certificate and its forgeries
     bits = [0] * COMMITTEE
@@ -680,16 +936,17 @@ def slice_phase(seed):
     flipped = list(bits)
     flipped[bits.index(1)] = 0
     fn = D.agg_verify_hashed_on_device
-    ok, ops = count_ops(fn, table, bits, h, sig)  # warm
+    ok, ops, src = count_ops(fn, table, bits, h, sig)  # warm
     check(ok is True, "valid quorum certificate rejected")
-    ok, ms, made = timed(fn, table, bits, h, sig)
+    ok, ms, made, wait = timed(fn, table, bits, h, sig)
     check(ok is True, "valid quorum certificate rejected (second call)")
-    results["agg_verify_hashed_on_device"] = (ms, made, ops)
+    results["agg_verify_hashed_on_device"] = (ms, made, ops, wait)
+    sources["agg_verify_hashed_on_device"] = src
     qc = (fn, table, bits, h, sig)
     for what, args in (("one bit flipped", (flipped, h, sig)),
                        ("wrong payload", (bits, hashes[1], sig)),
                        ("infinity signature", (bits, h, ((0, 0), (0, 0))))):
-        ok, _, _ = timed(fn, table, *args)
+        ok = timed(fn, table, *args)[0]
         check(ok is False, f"forged certificate accepted: {what}")
     log("agg_verify_hashed_on_device: valid True; one bit flipped, wrong "
         "payload, infinity signature all False")
@@ -717,11 +974,12 @@ def slice_phase(seed):
     args = ([t[0] for t in lanes], [t[1] for t in lanes],
             [t[2] for t in lanes])
     fn = D.agg_verify_batch_on_device
-    out, ops = count_ops(fn, table, *args)  # warm
+    out, ops, src = count_ops(fn, table, *args)  # warm
     check(out == want, f"replay batch verdicts {out} != {want}")
-    out, ms, made = timed(fn, table, *args)
+    out, ms, made, wait = timed(fn, table, *args)
     check(out == want, "replay batch verdicts (second call)")
-    results["agg_verify_batch_on_device"] = (ms, made, ops)
+    results["agg_verify_batch_on_device"] = (ms, made, ops, wait)
+    sources["agg_verify_batch_on_device"] = src
     log(f"agg_verify_batch_on_device: {len(lanes)} headers, "
         f"{sum(want)} valid and {len(want) - sum(want)} forged, as built")
 
@@ -736,38 +994,50 @@ def slice_phase(seed):
         sig_pts.append(sig_k)
         expect.append(not forged)
     fn = D.verify_many_on_device
-    out, ops = count_ops(fn, pk_pts, h_pts, sig_pts)  # warm
+    out, ops, src = count_ops(fn, pk_pts, h_pts, sig_pts)  # warm
     check(out == expect, f"single checks {out} != {expect}")
-    out, ms, made = timed(fn, pk_pts, h_pts, sig_pts)
+    out, ms, made, wait = timed(fn, pk_pts, h_pts, sig_pts)
     check(out == expect, "single checks (second call)")
-    results["verify_many_on_device"] = (ms, made, ops)
+    results["verify_many_on_device"] = (ms, made, ops, wait)
+    sources["verify_many_on_device"] = src
     log(f"verify_many_on_device: {SINGLE_CHECKS} checks, "
         f"{sum(expect)} valid and {len(expect) - sum(expect)} forged")
 
     # one single check from the payload bytes (it hashes on the host)
     i = rng.randrange(COMMITTEE)
-    ok, ms, made = timed(D.verify_on_device, pks[i], payloads[0],
-                         g2.mul(hashes[0], sks[i]))
+    ok, ms, made, wait = timed(D.verify_on_device, pks[i], payloads[0],
+                               g2.mul(hashes[0], sks[i]))
     check(ok is True, "verify_on_device rejected a valid signature")
-    results["verify_on_device"] = (ms, made, None)
+    results["verify_on_device"] = (ms, made, None, wait)
     log("verify_on_device: valid signature True")
 
-    for name, (ms, made, ops) in results.items():
+    for name, (ms, made, ops, wait) in results.items():
         for kernel, n in made.items():
             check(n > 0, f"{name} never launched the {kernel} kernel")
-        line = f"{name}: {ms:.3f} ms per call, " + ", ".join(
-            f"{n} {kernel}" for kernel, n in made.items()) + " launches"
+        line = (f"{name}: {ms:.3f} ms per call ({wait:.3f} ms of it waiting "
+                f"for the card at the end), " + ", ".join(
+                    f"{n} {kernel}" for kernel, n in made.items())
+                + " launches")
         if ops is not None:
             dispatches = sum(made.values()) + ops
             line += (f" and {ops} other tensor ops per call "
                      f"({1e3 * ms / dispatches:.3f} us per launch or op)")
         log(line)
-    # what fusing the tower operations must have removed from one check
+        if name in sources:
+            log(f"{name} by source: " + "; ".join(
+                f"{src} {c.total() - c['ops']} launches ("
+                + ", ".join(f"{k} {n}" for k, n in sorted(c.items())
+                            if k != "ops")
+                + f") + {c['ops']} other ops"
+                for src, c in sorted(sources[name].items(),
+                                     key=lambda kv: -kv[1].total())))
+    # what fusing the towers, the Miller loop and the inversions must
+    # have left of one check's launches
     made = results["agg_verify_hashed_on_device"][1]
-    for kernel, most in (("fp_addsub", 5000), ("fp12_mul", 200),
-                         ("fp12_cyclo_sqr", 40)):
-        check(made[kernel] <= most, f"one quorum check launched {kernel} "
-              f"{made[kernel]} times, more than {most}")
+    for kernel, (least, most) in QC_LAUNCHES.items():
+        check(least <= made[kernel] <= most,
+              f"one quorum check launched {kernel} {made[kernel]} times, "
+              f"not {least} to {most}")
     return results, qc
 
 
@@ -876,14 +1146,20 @@ def main(argv=None):
     log(f"built {_build.library_path().name} from "
         f"{', '.join(src.name for src in _build.SOURCES)} in "
         f"{time.perf_counter() - t0:.3f} s")
+    ptxas = ptxas_report()
+    for kernel, line in ptxas.items():
+        log(f"ptxas, {kernel}: {line}")
 
     stats = {k: {"max_abs_err": 0} for k in KERNELS}
     mont_mul_phase(args.seed, stats["mont_mul"])
     addsub_phase(args.seed, stats["fp_addsub"])
     fp12_mul_phase(args.seed, stats["fp12_mul"])
     cyclo_phase(args.seed, stats["fp12_cyclo_sqr"])
+    miller_phase(args.seed, stats["miller_loop"])
+    inv_phase(args.seed, stats["fp_inv"])
     timings = timing_phase(args.seed)
     timings.update(tower_timing_phase(args.seed))
+    timings.update(loop_timing_phase(args.seed))
 
     # the main path: launch counts start from zero here
     for module in wrappers().values():
@@ -911,6 +1187,7 @@ def main(argv=None):
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": None,
+            "ptxas": ptxas[name],
             "shape": described,
             "timings": {o: timings[o] for o in kept},
         }
@@ -931,6 +1208,14 @@ def main(argv=None):
               "fp12_cyclo_sqr", "1 lanes, n = 32",
               "1 lane, 32 squarings (a quorum check's longest run)",
               ("fp12_cyclo_sqr",)),
+        entry("miller_loop", "harmony_tpu_torch/csrc/miller_loop.cu",
+              "none: fuses harmony_tpu/ops/pairing.py:155-194 (scan and "
+              "fori_loop, fused by XLA)", "miller_loop", "2 lanes",
+              "2 lanes, a quorum check's two pairs", ("miller_loop",)),
+        entry("fp_inv", "harmony_tpu_torch/csrc/fp_inv.cu",
+              "none: fuses harmony_tpu/ops/fp.py:224-245 (pow_fixed scan, "
+              "fused by XLA)", "fp_inv", "1 rows",
+              "1 row, one of a quorum check's two inversions", ("fp_inv",)),
     ]
     log(f"chip_smoke took {time.perf_counter() - started:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

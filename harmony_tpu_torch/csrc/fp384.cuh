@@ -1,7 +1,8 @@
 // 384-bit arithmetic over the BLS12-381 base field, one element per
-// thread, shared by the CUDA kernels (mont_mul.cu, fp_addsub.cu) and, as
-// plain C++, by the host test of their arithmetic
-// (tests/test_torch_fp384_host.py).
+// thread, shared by the CUDA kernels (mont_mul.cu, fp_addsub.cu,
+// fp_inv.cu, and the tower kernels through fp12.cuh) and, as plain C++, by
+// the host tests of their arithmetic (tests/test_torch_fp384_host.py,
+// tests/test_torch_miller_host.py).
 //
 // The boundary format is the port's: 32 little-endian limbs of 12 bits,
 // canonical (< p).  Inside, an element is 12 little-endian words of 32 bits
@@ -12,23 +13,27 @@
 //
 // The modulus comes in as macros from a header that the build generates
 // from ops/_constants.py and pre-includes (kernels/_build.py):
-//   HARMONY_P_WORDS  p as 12 little-endian 32-bit words
-//   HARMONY_P_INV32  -p^-1 mod 2^32
+//   HARMONY_P_WORDS          p as 12 little-endian 32-bit words
+//   HARMONY_P_INV32          -p^-1 mod 2^32
+//   HARMONY_P_MINUS_2_WORDS  p - 2, the Fermat exponent, as 12 words
 
 #pragma once
 
 #include <cstdint>
 
-#if !defined(HARMONY_P_WORDS) || !defined(HARMONY_P_INV32)
+#if !defined(HARMONY_P_WORDS) || !defined(HARMONY_P_INV32) || \
+    !defined(HARMONY_P_MINUS_2_WORDS)
 #error "build through harmony_tpu_torch/kernels/_build.py, which defines the modulus"
 #endif
 
 #if defined(__CUDACC__)
 #define FP384_FN __host__ __device__ __forceinline__
 #define FP384_UNROLL _Pragma("unroll")
+#define FP384_ROLLED _Pragma("unroll 1")
 #else
 #define FP384_FN inline
 #define FP384_UNROLL
+#define FP384_ROLLED
 #endif
 
 namespace fp384 {
@@ -174,6 +179,34 @@ FP384_FN void mont_mul(const uint32_t a[kWords], const uint32_t b[kWords],
     t[kWords - 1] = top + static_cast<uint32_t>(c);  // < 2^30: t < 2^382
   }
   cond_sub_p(t, out);
+}
+
+// a^(p - 2) = a^-1 mod p for canonical a in the Montgomery domain (the
+// inverse of a R is a^-1 R), with inv(0) = 0: Fermat's chain, left to
+// right over the bits of p - 2.  The top bit starts the chain at a; each
+// lower bit squares, and a set bit multiplies by a: 380 squarings and 228
+// products in a row for BLS12-381's p.  The plain version
+// (ops/fp.py inv_reference) squares 1 once more and multiplies it by a
+// first; both give the canonical residue, so the limbs agree.
+FP384_FN void inv(const uint32_t a[kWords], uint32_t out[kWords]) {
+  constexpr uint32_t e[kWords] = {HARMONY_P_MINUS_2_WORDS};
+  int top = 32 * kWords - 1;
+  while (!(e[top / 32] >> (top % 32) & 1u)) --top;
+  uint32_t acc[kWords], sq[kWords];
+  FP384_UNROLL
+  for (int j = 0; j < kWords; ++j) acc[j] = a[j];
+  FP384_ROLLED
+  for (int bit = top - 1; bit >= 0; --bit) {
+    mont_mul(acc, acc, sq);
+    if (e[bit / 32] >> (bit % 32) & 1u) {
+      mont_mul(sq, a, acc);
+    } else {
+      FP384_UNROLL
+      for (int j = 0; j < kWords; ++j) acc[j] = sq[j];
+    }
+  }
+  FP384_UNROLL
+  for (int j = 0; j < kWords; ++j) out[j] = acc[j];
 }
 
 #if defined(__CUDACC__)

@@ -8,9 +8,12 @@ use, from the sources in the checkout, into ``harmony_tpu_torch/_build/``
 or the constants change: the library's name carries their hash.  A failed
 build or launch raises; nothing falls back to a plain version.
 
-The modulus reaches the kernels through a header generated here from
-``ops/_constants.py`` and pre-included (``params_header``); not through
-``-D`` flags, because nvcc splits option values at commas.
+The modulus, the Fermat exponent p - 2, the Montgomery form of 1 and the
+Miller loop's schedule of |x| reach the kernels through a header
+generated here from ``ops/_constants.py`` and ``ops/schedule.py`` and
+pre-included
+(``params_header``); not through ``-D`` flags, because nvcc splits option
+values at commas.
 """
 
 import ctypes
@@ -26,25 +29,42 @@ import torch
 
 from ..ops import _constants as C
 from ..ops.limbs import N_LIMBS
+from ..ops.schedule import X_SCHED
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "mont_mul.cu", CSRC / "fp_addsub.cu", CSRC / "fp12_mul.cu",
-           CSRC / "fp12_cyclo_sqr.cu")
-HEADERS = (CSRC / "fp384.cuh", CSRC / "fp12.cuh")
+           CSRC / "fp12_cyclo_sqr.cu", CSRC / "miller_loop.cu",
+           CSRC / "fp_inv.cu")
+HEADERS = (CSRC / "fp384.cuh", CSRC / "fp12.cuh", CSRC / "miller.cuh")
 BUILD_DIR = _PKG / "_build"
 
-# p as 12 little-endian words of 32 bits, and -p^-1 mod 2^32
-P_WORDS = tuple((C.P_INT >> (32 * i)) & 0xFFFFFFFF for i in range(12))
+
+def _words(x: int) -> tuple:
+    """x < 2^384 as 12 little-endian words of 32 bits."""
+    return tuple((x >> (32 * i)) & 0xFFFFFFFF for i in range(12))
+
+
+# p, p - 2 and 2^384 mod p (1 in the Montgomery domain) as words, and
+# -p^-1 mod 2^32
+P_WORDS = _words(C.P_INT)
+P_MINUS_2_WORDS = _words(C.P_INT - 2)
+ONE_MONT_WORDS = _words((1 << 384) % C.P_INT)
 P_INV32 = -pow(C.P_INT, -1, 1 << 32) % (1 << 32)
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC"]
+# ptxas reports each kernel's registers, stack frame, spills and shared
+# memory; build() keeps the report beside the library (report_path)
+_COMPILE_FLAGS = ["-Xptxas", "-v"]
 
-# What the kernels take: rows of limbs (one Fp element), or lanes of 12
-# such rows (one Fp12 element, ops/__init__.py)
+# What the kernels take: rows of limbs (one Fp element), lanes of 12 such
+# rows (one Fp12 element, ops/__init__.py), and the affine points of G1
+# and of the G2 twist
 FP = (N_LIMBS,)
 FP12 = (2, 3, 2, N_LIMBS)
+G1_AFFINE = (2, N_LIMBS)
+G2_AFFINE = (2, 2, N_LIMBS)
 
 
 def _signature(n_ptrs, *extra):
@@ -61,7 +81,9 @@ _ENTRY_POINTS = {"harmony_mont_mul": _signature(3),
                  "harmony_fp_sub": _signature(3),
                  "harmony_fp_neg": _signature(2),
                  "harmony_fp12_mul": _signature(3),
-                 "harmony_fp12_cyclo_sqr": _signature(2, ctypes.c_int32)}
+                 "harmony_fp12_cyclo_sqr": _signature(2, ctypes.c_int32),
+                 "harmony_miller_loop": _signature(3),
+                 "harmony_fp_inv": _signature(2)}
 
 _lib = None
 _lock = threading.Lock()
@@ -73,9 +95,16 @@ def _nvcc() -> str:
 
 
 def params_header() -> str:
-    words = ", ".join(f"0x{w:08x}u" for w in P_WORDS)
-    return (f"#define HARMONY_P_WORDS {words}\n"
-            f"#define HARMONY_P_INV32 0x{P_INV32:08x}u\n")
+    def words(ws):
+        return ", ".join(f"0x{w:08x}u" for w in ws)
+
+    n_dbl, do_add = X_SCHED  # the Miller loop's schedule of |x|
+    return (f"#define HARMONY_P_WORDS {words(P_WORDS)}\n"
+            f"#define HARMONY_P_INV32 0x{P_INV32:08x}u\n"
+            f"#define HARMONY_P_MINUS_2_WORDS {words(P_MINUS_2_WORDS)}\n"
+            f"#define HARMONY_ONE_MONT_WORDS {words(ONE_MONT_WORDS)}\n"
+            f"#define HARMONY_MILLER_DBL {', '.join(map(str, n_dbl))}\n"
+            f"#define HARMONY_MILLER_ADD {', '.join(map(str, do_add))}\n")
 
 
 def library_path() -> Path:
@@ -84,13 +113,19 @@ def library_path() -> Path:
     digest = hashlib.sha256()
     for path in SOURCES + HEADERS:
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
-    digest.update(" ".join(_FLAGS).encode() + params_header().encode())
+    digest.update(" ".join(_FLAGS + _COMPILE_FLAGS).encode()
+                  + params_header().encode())
     return BUILD_DIR / f"harmony_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds):
+def report_path() -> Path:
+    """The compiler's report (ptxas -v) of the library at library_path()."""
+    return library_path().with_suffix(".ptxas.txt")
+
+
+def _run_all(cmds) -> list:
     """Start every command, then wait for all; raise on the first that
-    failed, with its output."""
+    failed, with its output; return their outputs."""
     procs = []
     try:
         for cmd in cmds:
@@ -102,6 +137,7 @@ def _run_all(cmds):
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return outputs
 
 
 def build() -> ctypes.CDLL:
@@ -117,9 +153,11 @@ def build() -> ctypes.CDLL:
                 header = Path(tmp) / "harmony_params.h"
                 header.write_text(params_header())
                 objs = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
-                _run_all([[_nvcc(), *_FLAGS, "-include", str(header),
-                           "-c", "-o", str(obj), str(src)]
-                          for src, obj in zip(SOURCES, objs)])
+                report = _run_all([[_nvcc(), *_FLAGS, *_COMPILE_FLAGS,
+                                    "-include", str(header), "-c", "-o",
+                                    str(obj), str(src)]
+                                   for src, obj in zip(SOURCES, objs)])
+                report_path().write_text("".join(report))
                 linked = Path(tmp) / so.name
                 _run_all([[_nvcc(), *_FLAGS, "-shared", "-o", str(linked),
                            *map(str, objs)]])
@@ -133,7 +171,7 @@ def build() -> ctypes.CDLL:
         return lib
 
 
-# The launch path below runs some 5,300 times per quorum check, and its
+# The launch path below runs some 500 times per quorum check, and its
 # host time is much of the check's: it is written out per arity and asks
 # each tensor only what it must.
 

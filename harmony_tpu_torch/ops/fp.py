@@ -7,13 +7,13 @@ The same arithmetic as the JAX package's ops/fp.py, limb for limb:
 - Additions and subtractions resolve carries and borrows by a
   Kogge-Stone lookahead over (generate, propagate) pairs along the limb
   axis.
-- ``mont_mul``, ``add``, ``sub`` and ``neg`` dispatch on their tensors'
-  device.  For a CUDA tensor each launches a hand-written kernel
-  (kernels/mont_mul.py, kernels/fp_addsub.py); for a CPU tensor it runs
-  its plain PyTorch version (``mont_mul_reference``, the 32-step
-  shift-based CIOS; ``add_reference``, ``sub_reference``,
-  ``neg_reference``).  Nothing selects a plain version for a tensor on
-  the card.
+- ``mont_mul``, ``add``, ``sub``, ``neg`` and ``inv`` dispatch on their
+  tensors' device.  For a CUDA tensor each launches a hand-written kernel
+  (kernels/mont_mul.py, kernels/fp_addsub.py, kernels/fp_inv.py); for a
+  CPU tensor it runs its plain PyTorch version (``mont_mul_reference``,
+  the 32-step shift-based CIOS; ``add_reference``, ``sub_reference``,
+  ``neg_reference``; ``inv_reference``, the Fermat chain of products).
+  Nothing selects a plain version for a tensor on the card.
 
 All functions are shape-polymorphic over leading batch axes and run on
 the device of their inputs; tower fields (ops/towers.py) stack their
@@ -25,6 +25,7 @@ kernels of their own).
 import torch
 
 from ..kernels import fp_addsub as K_ADDSUB
+from ..kernels import fp_inv as K_INV
 from ..kernels import mont_mul as K_MUL
 from . import _constants as C
 from .limbs import LIMB_BITS, LIMB_MASK, N_LIMBS, int_to_limbs
@@ -236,7 +237,17 @@ def pow_fixed(a, exponent_bits):
 
 
 def inv(a):
-    """Modular inverse via Fermat: a^(p-2).  inv(0) = 0 (callers guard)."""
+    """Modular inverse via Fermat, a^(p-2), with inv(0) = 0 (callers
+    guard): one kernel launch for a CUDA tensor (the whole chain), the
+    plain ``inv_reference`` for a CPU tensor."""
+    if a.is_cpu:
+        return inv_reference(a)
+    return K_INV.inv(a)
+
+
+def inv_reference(a):
+    """The plain PyTorch inverse: a^(p-2) by ``pow_fixed``, 381 squarings
+    and 229 products."""
     return pow_fixed(a, _P_MINUS_2_BITS)
 
 

@@ -5,10 +5,13 @@ certificate and replayed header.  The same algorithm as the JAX package's
 ops/pairing.py, step for step:
 
 - Miller loop over the bits of |x| following its static square-and-
-  multiply schedule (_schedule): 6 segments of double-steps, each but the
-  last closed by an add-step.  The JAX package runs the schedule as a
-  scan over segments with a fori_loop inside; here both are Python loops
-  over the same host schedule.
+  multiply schedule (ops/schedule.py): 6 segments of double-steps, each
+  but the last closed by an add-step.  The JAX package runs the schedule as a
+  scan over segments with a fori_loop inside.  ``miller_loop`` dispatches
+  on its tensors' device: a CUDA tensor runs the whole loop in one
+  kernel launch (kernels/miller_loop.py), which raises if it cannot; a
+  CPU tensor runs the plain ``miller_loop_reference``, where both loops
+  are Python loops over the same host schedule.
 - Twist-Jacobian line construction with denominator elimination; lines
   live in the sparse Fp12 basis {v^2, w, w v}.
 - Final exponentiation to the power 3 (p^12 - 1)/r: the CUBED pairing,
@@ -23,35 +26,10 @@ Batching: points are batched over leading axes; products of pairings
 
 import torch
 
-from . import _constants as C
+from ..kernels import miller_loop as K_MILLER
 from . import fp
 from . import towers as T
-
-
-def _schedule(e: int):
-    """Square-and-multiply schedule of a STATIC exponent as two equal-
-    length tuples: per segment, the number of squarings, then whether a
-    multiply follows.  BLS |x| has hamming weight 6, so the schedule is
-    6 segments: 63 squarings + 5 multiplies."""
-    bits = bin(e)[2:]
-    runs, zeros = [], 0
-    for ch in bits[1:]:
-        if ch == "0":
-            zeros += 1
-        else:
-            runs.append(zeros + 1)
-            zeros = 0
-    n_sqr = list(runs)
-    do_mul = [1] * len(runs)
-    if zeros:
-        n_sqr.append(zeros)
-        do_mul.append(0)
-    return tuple(n_sqr), tuple(do_mul)
-
-
-_ABS_X = -C.BLS_X  # 0xd201000000010000
-_X_SCHED = _schedule(_ABS_X)
-_XM1_SCHED = _schedule(_ABS_X + 1)  # |x - 1| = |x| + 1 (x < 0)
+from .schedule import X_SCHED, XM1_SCHED
 
 
 def _fp2_scale_fp(a, s):
@@ -135,8 +113,19 @@ def _add_step(x, y, z, xq, yq, xp_m, yp_m):
 
 @torch.inference_mode()
 def miller_loop(p_aff, q_aff):
-    """f_{|x|,Q}(P), conjugated for x < 0.  Finite affine inputs only:
-    p_aff (..., 2, 32) over Fp, q_aff (..., 2, 2, 32) over Fp2.
+    """f_{|x|,Q}(P), conjugated for x < 0: one kernel launch for CUDA
+    tensors, the plain ``miller_loop_reference`` for CPU tensors.  Finite
+    affine inputs (an infinity lane, (0, 0), gives a value that the
+    caller masks): p_aff (..., 2, 32) over Fp, q_aff (..., 2, 2, 32) over
+    Fp2."""
+    if p_aff.is_cpu and q_aff.is_cpu:
+        return miller_loop_reference(p_aff, q_aff)
+    return K_MILLER.miller_loop(p_aff, q_aff)
+
+
+@torch.inference_mode()
+def miller_loop_reference(p_aff, q_aff):
+    """The plain PyTorch Miller loop over the Fp and Fp12 dispatchers.
 
     Follows |x|'s static schedule: each segment runs its double-steps,
     then the add-step where the schedule has one (the JAX package
@@ -150,7 +139,7 @@ def miller_loop(p_aff, q_aff):
     batch = xp.shape[:-1]
     f = T.fp12_one(batch, xp.device)
     x, y, z = xq, yq, T.fp2_one(batch, xp.device)
-    for n_dbl, do_add in zip(*_X_SCHED):
+    for n_dbl, do_add in zip(*X_SCHED):
         for _ in range(n_dbl):
             (x, y, z), (c_v2, c_w, c_wv) = _dbl_step(x, y, z, xp3, yp)
             f = T.fp12_mul(T.fp12_sqr(f),
@@ -184,14 +173,14 @@ def final_exponentiation(f):
     """
     f1 = T.fp12_mul(T.fp12_conj(f), T.fp12_inv(f))  # ^(p^6 - 1)
     f2 = T.fp12_mul(T.fp12_frobenius(f1, 2), f1)  # ^(p^2 + 1), unitary now
-    m1 = T.fp12_conj(_cyclo_pow_abs(f2, _XM1_SCHED))  # f2^(x-1)
-    m2 = T.fp12_conj(_cyclo_pow_abs(m1, _XM1_SCHED))  # ^(x-1)^2
+    m1 = T.fp12_conj(_cyclo_pow_abs(f2, XM1_SCHED))  # f2^(x-1)
+    m2 = T.fp12_conj(_cyclo_pow_abs(m1, XM1_SCHED))  # ^(x-1)^2
     m3 = T.fp12_mul(
-        T.fp12_conj(_cyclo_pow_abs(m2, _X_SCHED)),  # m2^x
+        T.fp12_conj(_cyclo_pow_abs(m2, X_SCHED)),  # m2^x
         T.fp12_frobenius(m2, 1),  # m2^p
     )
     m3_x2 = _cyclo_pow_abs(
-        _cyclo_pow_abs(m3, _X_SCHED), _X_SCHED
+        _cyclo_pow_abs(m3, X_SCHED), X_SCHED
     )  # m3^(x^2) — two |x| powers; the two conjugations cancel
     m4 = T.fp12_mul(
         T.fp12_mul(m3_x2, T.fp12_frobenius(m3, 2)),

@@ -17,8 +17,10 @@ from harmony_tpu.ops import fp as jfp
 from harmony_tpu.ops.fp_pallas import mont_mul_pallas
 from harmony_tpu.ref import params as JP
 from harmony_tpu_torch.kernels import fp_addsub as KA
+from harmony_tpu_torch.kernels import fp_inv as KI
 from harmony_tpu_torch.kernels import mont_mul as K
 from harmony_tpu_torch.ops import _constants as TC
+from harmony_tpu_torch.ops import curve as TCV
 from harmony_tpu_torch.ops import fp as tfp
 from harmony_tpu_torch.ops import limbs as TL
 from harmony_tpu_torch.ref import params as TP
@@ -174,6 +176,47 @@ def test_inv_matches_jax():
     out = tfp.inv(torch.from_numpy(am))
     _same(out, jfp.inv(jnp.asarray(am)))
     assert _ints(out) == [pow(x, -1, P) * R % P for x in xs]
+
+
+def test_cpu_inv_takes_the_plain_version_and_launches_nothing(monkeypatch):
+    a = torch.from_numpy(_limbs([0, 1, P - 1]))
+    plain = tfp.inv_reference
+    calls = []
+    monkeypatch.setattr(tfp, "inv_reference",
+                        lambda x: calls.append(1) or plain(x))
+    before = (KI.LAUNCHES, K.LAUNCHES)
+    out = tfp.inv(a)
+    _same(out, plain(a))
+    assert calls == [1]
+    assert (KI.LAUNCHES, K.LAUNCHES) == before
+    # limbs x hold x R^-1 in the Montgomery domain: the inverse is x^-1 R^2
+    assert _ints(out) == [pow(x, -1, P) * R * R % P if x else 0
+                          for x in (0, 1, P - 1)]
+
+
+@pytest.mark.parametrize("entry", ["fp.inv", "curve.FP_OPS.inv"])
+def test_inv_off_the_cpu_goes_to_the_kernel_and_never_falls_back(
+        entry, monkeypatch):
+    """A tensor that is not on the CPU reaches the kernel's wrapper, which
+    launches or raises: here (no card) it raises, and the plain version
+    is never called.  ``curve.FP_OPS`` holds the dispatcher it captured
+    at import, which must dispatch the same way."""
+    calls = []
+    monkeypatch.setattr(tfp, "inv_reference", lambda x: calls.append(1))
+    inv = tfp.inv if entry == "fp.inv" else TCV.FP_OPS.inv
+    with pytest.raises(ValueError, match="CUDA"):
+        inv(torch.empty(3, 32, dtype=torch.int32, device="meta"))
+    assert calls == []
+    assert KI.LAUNCHES == 0
+
+
+def test_fp_inv_kernel_refuses_cpu_tensors_and_wrong_dtypes():
+    a = torch.from_numpy(_limbs([3, 5]))
+    with pytest.raises(ValueError, match="CUDA"):
+        KI.inv(a)
+    with pytest.raises(TypeError, match="int32"):
+        KI.inv(a.long())
+    assert KI.LAUNCHES == 0
 
 
 def test_is_zero_and_select_match_jax():

@@ -32,6 +32,7 @@ from harmony_tpu.ops import interop as JI
 from harmony_tpu.ref import fields as RF
 from harmony_tpu_torch.kernels import _build
 from harmony_tpu_torch.ops import pairing as TPR
+from harmony_tpu_torch.ops import schedule as S
 from harmony_tpu_torch.ops import towers as TT
 from test_torch_fp import _CARRY_VECTORS, P, _limbs
 
@@ -261,7 +262,7 @@ def test_zero_squarings_return_the_input(host_lib):
 
 # a short schedule with runs of one, two and several squarings, and a
 # trailing run without a multiply, like |x|'s
-_SHORT_SCHED = TPR._schedule(0b1101000100000)
+_SHORT_SCHED = S.schedule(0b1101000100000)
 
 
 @pytest.mark.parametrize("sched", ["short", "x_minus_1"])
@@ -269,7 +270,7 @@ def test_cyclo_pow_by_segments_equals_one_squaring_at_a_time(sched):
     """``_cyclo_pow_abs`` squares once per segment (``fp12_cyclo_sqr_n``);
     the same schedule one squaring at a time, and the bigint power, agree
     with it."""
-    n_sqr, do_mul = {"short": _SHORT_SCHED, "x_minus_1": TPR._XM1_SCHED}[sched]
+    n_sqr, do_mul = {"short": _SHORT_SCHED, "x_minus_1": S.XM1_SCHED}[sched]
     a = torch.from_numpy(_CASES["cyclotomic"][0])
     got = TPR._cyclo_pow_abs(a, (n_sqr, do_mul))
     acc = a

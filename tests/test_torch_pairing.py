@@ -7,7 +7,9 @@ the GT element's canonical limbs are unique.  No JAX program is jitted
 here: a pairing-shaped XLA:CPU compile takes minutes.
 """
 
+import ast
 import random
+from pathlib import Path
 
 import pytest
 import torch
@@ -17,8 +19,11 @@ from harmony_tpu.ref import curve as RC
 from harmony_tpu.ref import fields as RF
 from harmony_tpu.ref import pairing as RP
 from harmony_tpu.ref.params import R_ORDER
+from harmony_tpu_torch.kernels import _build as KB
+from harmony_tpu_torch.kernels import miller_loop as KML
 from harmony_tpu_torch.ops import interop as TI
 from harmony_tpu_torch.ops import pairing as PR
+from harmony_tpu_torch.ops import schedule as S
 
 rng = random.Random(0xA7E)
 
@@ -68,9 +73,71 @@ def test_is_one_per_lane(product):
 
 def test_schedules_match_the_bits_of_x():
     """The static square-and-multiply schedules replay |x| and |x| + 1."""
-    for sched, e in ((PR._X_SCHED, PR._ABS_X), (PR._XM1_SCHED, PR._ABS_X + 1)):
+    for sched, e in ((S.X_SCHED, S.ABS_X), (S.XM1_SCHED, S.ABS_X + 1)):
         acc = 1
         for n_sqr, do_mul in zip(*sched):
             acc <<= n_sqr
             acc += do_mul
         assert acc == e
+
+
+def test_generated_header_carries_the_loop_schedule():
+    """The kernels' generated header gives the Miller loop |x|'s schedule
+    from ops/schedule.py; the build layer reads it there and imports no op
+    module above the constants (ops/pairing.py imports the build)."""
+    defs = dict(line.split(" ", 2)[1:]
+                for line in KB.params_header().splitlines())
+    for name, want in (("HARMONY_MILLER_DBL", S.X_SCHED[0]),
+                       ("HARMONY_MILLER_ADD", S.X_SCHED[1])):
+        assert tuple(map(int, defs[name].split(", "))) == want
+    tree = ast.parse(Path(KB.__file__).read_text(encoding="utf-8"))
+    ops = {a.name for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
+           and n.module == "ops" and n.level == 2 for a in n.names}
+    ops |= {n.module.split(".")[1] for n in ast.walk(tree)
+            if isinstance(n, ast.ImportFrom) and n.level == 2
+            and (n.module or "").startswith("ops.")}
+    assert ops <= {"_constants", "limbs", "schedule"}, ops
+
+
+def _stub_miller(monkeypatch):
+    """Replace the plain loop by a stub that records its calls."""
+    calls = []
+    monkeypatch.setattr(PR, "miller_loop_reference",
+                        lambda p, q: calls.append((p, q)) or "plain")
+    return calls
+
+
+def test_cpu_miller_loop_takes_the_plain_version_and_launches_nothing(
+        monkeypatch):
+    calls = _stub_miller(monkeypatch)
+    p = torch.zeros(2, 2, 32, dtype=torch.int32)
+    q = torch.zeros(2, 2, 2, 32, dtype=torch.int32)
+    assert PR.miller_loop(p, q) == "plain"
+    assert len(calls) == 1 and calls[0][0] is p and calls[0][1] is q
+    assert KML.LAUNCHES == 0
+
+
+def test_miller_loop_off_the_cpu_goes_to_the_kernel_and_never_falls_back(
+        monkeypatch):
+    """Tensors that are not on the CPU reach the kernel's wrapper, which
+    launches or raises: here (no card) it raises, and the plain loop is
+    never called."""
+    calls = _stub_miller(monkeypatch)
+    p = torch.empty(2, 2, 32, dtype=torch.int32, device="meta")
+    q = torch.empty(2, 2, 2, 32, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        PR.miller_loop(p, q)
+    assert calls == []
+    assert KML.LAUNCHES == 0
+
+
+def test_miller_loop_kernel_refuses_cpu_tensors_dtypes_and_shapes():
+    p = torch.zeros(2, 2, 32, dtype=torch.int32)
+    q = torch.zeros(2, 2, 2, 32, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        KML.miller_loop(p, q)
+    with pytest.raises(TypeError, match="int32"):
+        KML.miller_loop(p.long(), q)
+    with pytest.raises(ValueError, match=r"\(\.\.\., 2, 2, 32\)"):
+        KML.miller_loop(p, q[..., 0, :])
+    assert KML.LAUNCHES == 0
