@@ -8,7 +8,10 @@ Run from the root of a checkout on a machine with one CUDA card.  It
 1. prints the card's name and power limit and builds the six CUDA
    kernels (harmony_tpu_torch/csrc/mont_mul.cu, fp_addsub.cu,
    fp12_mul.cu, fp12_cyclo_sqr.cu, miller_loop.cu and fp_inv.cu, one
-   library) from the checkout;
+   library) from the checkout, with the build's time, each kernel's
+   registers, stack frame, spills and shared memory (ptxas) and SASS
+   instructions (cuobjdump); miller_loop and fp12_cyclo_sqr must have
+   no stack frame and no spills;
 2. holds each kernel against its plain PyTorch version on the card, bit
    for bit, at the shapes the verify path gives it and on edge cases;
    times both with the wrapper, and each kernel alone on the device
@@ -37,6 +40,7 @@ import contextlib
 import json
 import math
 import random
+import re
 import subprocess
 import sys
 import time
@@ -93,6 +97,9 @@ CYCLO_RUNS = (1, 2, 3, 9, 16, 32)
 # rows, and timed at the path's: 1 (each of a quorum check's two
 # inversions) and 64 (the batch's aggregate keys made affine).
 MILLER_LANES = {"2": (2,), "2x64": (2, 64)}
+# lane counts each redesigned kernel is also held at: one block per lane
+MILLER_EDGE_LANES = (1, 3, 127, 129)
+CYCLO_EDGE_LANES = (1, 5, 64, 65)
 INV_ROWS = (1, 3, 3456)
 INV_TIMED_ROWS = (1, 64)
 # what one quorum check may launch, now that the Miller loop and the
@@ -196,6 +203,25 @@ def ptxas_report():
                 line.split(":", 1)[-1].strip())
     check(set(out) == set(KERNELS), f"ptxas reported {sorted(out)}")
     return {k: "; ".join(v) for k, v in out.items()}
+
+
+def sass_sizes():
+    """Each kernel's SASS instructions in the library, as cuobjdump
+    lists them (the toolkit's, beside nvcc)."""
+    from harmony_tpu_torch.kernels import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(_build.library_path())],
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    sizes, kernel = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            kernel = next((k for k in KERNELS if symbol(k) in line), None)
+        elif kernel and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            sizes[kernel] = sizes.get(kernel, 0) + 1
+    check(set(sizes) == set(KERNELS), f"cuobjdump listed {sorted(sizes)}")
+    return sizes
 
 
 def profiled(fn, reps, activities=("CUDA",)):
@@ -573,7 +599,8 @@ def cyclo_phase(seed, stats):
     """The fp12_cyclo_sqr kernel against n plain squarings on the card,
     bit for bit, for each run length of the path, on unitary values (64
     lanes) and on random values (1 lane), which it must square by the
-    same polynomial; two results also against the host bigint."""
+    same polynomial, and at n = 0, 1 and 32 on 1, 5, 64 and 65 lanes (one
+    block per lane); two results also against the host bigint."""
     import numpy as np
 
     from harmony_tpu_torch.kernels import fp12_cyclo_sqr as KC
@@ -599,6 +626,17 @@ def cyclo_phase(seed, stats):
                       f"fp12_cyclo_sqr n = {n}: kernel differs from the "
                       f"host bigint")
     log("fp12_cyclo_sqr kernel == host bigint a^(2^n), n = 1 and 32")
+    # one block per lane: lane counts around the warp and the block of
+    # the old geometry, each held against a prefix of one plain run
+    a = fp12_limbs(rng, max(CYCLO_EDGE_LANES))
+    for n in (0, 1, 32):
+        want = a
+        with plain_fp():
+            for _ in range(n):
+                want = T.fp12_cyclo_sqr_reference(want)
+        for lanes in CYCLO_EDGE_LANES:
+            _compare(f"fp12_cyclo_sqr, n = {n}, {lanes} lanes",
+                     KC.fp12_cyclo_sqr_n(a[:lanes], n), want[:lanes], stats)
 
 
 def tower_timing_phase(seed):
@@ -665,7 +703,8 @@ def miller_phase(seed, stats):
     quorum check's 2 lanes, the batch's 2 x 64 lanes (there also against
     the composition over the Fp and Fp12 kernels, the path before the
     kernel), lanes of infinity (0, 0) as verify's padded and forged lanes
-    give it, a broadcast operand and strided views."""
+    give it, a broadcast operand, strided views, and 1, 3, 127 and 129
+    lanes (one block per lane)."""
     import numpy as np
     import torch
 
@@ -710,6 +749,16 @@ def miller_phase(seed, stats):
     p8 = torch.from_numpy(canonical_limbs(rng, (8, 2))).cuda()
     q8 = torch.from_numpy(canonical_limbs(rng, (8, 2, 2))).cuda()
     compare("strided views (alternate lanes)", p8[::2], q8[1::2])
+    # one block per lane: lane counts around a warp and the card's 132
+    # SMs, each held against a prefix of one plain run
+    most = max(MILLER_EDGE_LANES)
+    p = torch.from_numpy(canonical_limbs(rng, (most, 2))).cuda()
+    q = torch.from_numpy(canonical_limbs(rng, (most, 2, 2))).cuda()
+    with plain_fp():
+        want = PR.miller_loop_reference(p, q)
+    for lanes in MILLER_EDGE_LANES:
+        _compare(f"miller_loop, {lanes} lanes, against plain PyTorch",
+                 KML.miller_loop(p[:lanes], q[:lanes]), want[:lanes], stats)
 
 
 def inv_phase(seed, stats):
@@ -1147,8 +1196,14 @@ def main(argv=None):
         f"{', '.join(src.name for src in _build.SOURCES)} in "
         f"{time.perf_counter() - t0:.3f} s")
     ptxas = ptxas_report()
+    sass = sass_sizes()
     for kernel, line in ptxas.items():
-        log(f"ptxas, {kernel}: {line}")
+        log(f"ptxas, {kernel}: {line}; {sass[kernel]} SASS instructions")
+    # the phase plans keep every index into a register array constant
+    for kernel in ("miller_loop", "fp12_cyclo_sqr"):
+        check(all(f"0 bytes {what}" in ptxas[kernel] for what in
+                  ("stack frame", "spill stores", "spill loads")),
+              f"{kernel} has a stack frame or spills: {ptxas[kernel]}")
 
     stats = {k: {"max_abs_err": 0} for k in KERNELS}
     mont_mul_phase(args.seed, stats["mont_mul"])
@@ -1188,6 +1243,7 @@ def main(argv=None):
             "bound_by": t["bound_by"],
             "library_ms": None,
             "ptxas": ptxas[name],
+            "sass_instructions": sass[name],
             "shape": described,
             "timings": {o: timings[o] for o in kept},
         }

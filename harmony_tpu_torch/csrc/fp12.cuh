@@ -1,7 +1,8 @@
-// Whole Fp12 operations of the BLS12-381 tower for one lane, written as
-// phases of independent tasks over a scratch area, shared by the CUDA
-// kernels (fp12_mul.cu, fp12_cyclo_sqr.cu) and, as plain C++, by the host
-// test of their arithmetic and phase plans (tests/test_torch_fp12_host.py).
+// The Fp12 product of the BLS12-381 tower for one lane, written as phases
+// of independent tasks over a scratch area, used by the CUDA kernel
+// fp12_mul.cu and, as plain C++, by the host test of its arithmetic and
+// phase plan (tests/test_torch_fp12_host.py); and the loads and stores of
+// scratch elements (ld, st) that the plans of phases.cuh share.
 //
 // The tower is the port's (ops/towers.py) and the JAX package's:
 //   Fp2 = Fp[u]/(u^2 + 1), Fp6 = Fp2[v]/(v^3 - xi) with xi = u + 1,
@@ -245,103 +246,6 @@ FP384_FN void mul_task(int phase, int k, uint32_t* s) {
       break;
     }
   }
-}
-
-// --- fp12_cyclo_sqr --------------------------------------------------------
-//
-// ops/towers.py fp12_cyclo_sqr_reference (harmony_tpu/ops/towers.py
-// fp12_cyclo_sqr), the Granger-Scott squaring, the same polynomial: with
-// the Fp2 coefficients c0..c5 (c_k at Fp2 index k, so c0, c1, c2 are the
-// v-coefficients of w^0 and c3, c4, c5 those of w^1), nine Fp2 squarings
-// of c4, c0, c4 + c0, c3, c2, c3 + c2, c5, c1, c5 + c1 (each (x0 + x1)
-// (x0 - x1) + 2 x0 x1 u: 18 Fp products), then t0..t8 and z0..z5.  Round r
-// of a run of squarings reads the value in buffer r % 2 and writes the
-// next into the other.
-//
-//   phase  tasks  writes
-//   0      18     Sq: the 18 products, pre-adds done in registers
-//   1      12     the next value: z0 = 3 t0 - 2 c0 ... z5 = 3 t7 + 2 c5
-
-constexpr int kCycloPhases = 2;
-constexpr int kCycloSq = 24;       // 18: [squaring][component]
-constexpr int kCycloScratch = 42;  // elements: two values and Sq
-
-FP384_FN int cyclo_tasks(int phase) { return phase == 0 ? 18 : 12; }
-
-// Where round r's input lies (round n's is the result of n squarings).
-FP384_FN int cyclo_value(int round) { return (round % 2) * kElems; }
-
-FP384_FN void cyclo_task(int phase, int k, int round, uint32_t* s) {
-  const int in = cyclo_value(round);
-  uint32_t r[kWords];
-  if (phase == 0) {
-    // squaring q = k / 2 of Fp2 coefficient pair (c4, c0), (c3, c2) or
-    // (c5, c1): the first, the second, or their sum
-    const int q = k / 2, c = k % 2;
-    constexpr int kPairs[3][2] = {{4, 0}, {3, 2}, {5, 1}};
-    const int* pair = kPairs[q / 3];
-    uint32_t x0[kWords], x1[kWords], t[kWords], z[kWords];
-    if (q % 3 < 2) {
-      ld(s, in + 2 * pair[q % 3], x0);
-      ld(s, in + 2 * pair[q % 3] + 1, x1);
-    } else {
-      ld_add(s, in + 2 * pair[0], in + 2 * pair[1], x0);
-      ld_add(s, in + 2 * pair[0] + 1, in + 2 * pair[1] + 1, x1);
-    }
-    if (c == 0) {  // (x0 + x1)(x0 - x1)
-      fp384::add(x0, x1, t);
-      fp384::sub(x0, x1, z);
-      fp384::mont_mul(t, z, r);
-    } else {  // x0 (x1 + x1)
-      fp384::add(x1, x1, t);
-      fp384::mont_mul(x0, t, r);
-    }
-    st(s, kCycloSq + k, r);
-    return;
-  }
-  // z_i, component c, from its t and c_i; Fp2 squaring q, component cc,
-  // is element kCycloSq + 2 q + cc
-  const int i = k / 2, c = k % 2;
-  uint32_t t[kWords], a[kWords], b[kWords];
-  if (i < 3) {
-    // t0 = xi sq(c4) + sq(c0), t2 = xi sq(c2) + sq(c3),
-    // t4 = xi sq(c5) + sq(c1): squarings (0, 1), (4, 3), (6, 7)
-    constexpr int kXi[3] = {0, 4, 6}, kPlus[3] = {1, 3, 7};
-    uint32_t y0[kWords], y1[kWords];
-    ld(s, kCycloSq + 2 * kXi[i], y0);
-    ld(s, kCycloSq + 2 * kXi[i] + 1, y1);
-    xi_part(y0, y1, c, a);
-    ld(s, kCycloSq + 2 * kPlus[i] + c, b);
-    fp384::add(a, b, t);
-  } else {
-    // t8 = xi (sq(c5 + c1) - (sq(c5) + sq(c1))),
-    // t6 = sq(c4 + c0) - (sq(c4) + sq(c0)), t7 = sq(c3 + c2) - (sq(c3) + sq(c2)):
-    // squarings q, q + 1, q + 2 for q = 6, 0, 3
-    constexpr int kFirst[3] = {6, 0, 3};
-    const int sq = kCycloSq + 2 * kFirst[i - 3];
-    uint32_t d[2][kWords];
-    for (int cc = 0; cc < 2; ++cc) {
-      if (i > 3 && cc != c) continue;  // t6, t7: component c alone
-      ld_add(s, sq + cc, sq + 2 + cc, a);
-      ld(s, sq + 4 + cc, b);
-      fp384::sub(b, a, d[cc]);
-    }
-    if (i == 3) {
-      xi_part(d[0], d[1], c, t);
-    } else {
-      for (int w = 0; w < kWords; ++w) t[w] = d[c][w];
-    }
-  }
-  // z = (t - c_i) + (t - c_i) + t for i < 3, (t + c_i) + (t + c_i) + t after
-  ld(s, in + k, a);
-  if (i < 3) {
-    fp384::sub(t, a, b);
-  } else {
-    fp384::add(t, a, b);
-  }
-  fp384::add(b, b, a);
-  fp384::add(a, t, r);
-  st(s, cyclo_value(round + 1) + k, r);
 }
 
 }  // namespace fp12

@@ -36,7 +36,8 @@ CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "mont_mul.cu", CSRC / "fp_addsub.cu", CSRC / "fp12_mul.cu",
            CSRC / "fp12_cyclo_sqr.cu", CSRC / "miller_loop.cu",
            CSRC / "fp_inv.cu")
-HEADERS = (CSRC / "fp384.cuh", CSRC / "fp12.cuh", CSRC / "miller.cuh")
+HEADERS = (CSRC / "fp384.cuh", CSRC / "fp384_split.cuh", CSRC / "fp12.cuh",
+           CSRC / "phases.cuh", CSRC / "cyclo.cuh", CSRC / "miller.cuh")
 BUILD_DIR = _PKG / "_build"
 
 

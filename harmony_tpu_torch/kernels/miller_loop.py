@@ -24,9 +24,9 @@ def miller_loop(p_aff: torch.Tensor, q_aff: torch.Tensor) -> torch.Tensor:
     """f_{|x|,Q}(P), conjugated, of canonical affine points in the
     Montgomery domain on one CUDA device: P (..., 2, 32) over Fp and Q
     (..., 2, 2, 32) over Fp2, int32 limbs, their leading axes broadcast
-    against each other; f is (..., 2, 3, 2, 32), one warp per element of
-    the leading axes.  Launches on the current stream and does not
-    synchronise."""
+    against each other; f is (..., 2, 3, 2, 32), one block per element of
+    the leading axes (fewer than 2^31).  Launches on the current stream
+    and does not synchronise."""
     global LAUNCHES
     if p_aff.dtype is not torch.int32 or q_aff.dtype is not torch.int32:
         raise TypeError(f"{_ENTRY} takes int32, got {p_aff.dtype} and "

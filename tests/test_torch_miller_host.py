@@ -1,23 +1,26 @@
 """The Miller-loop and Fermat-inverse kernels' arithmetic and phase plans,
 on the CPU.
 
-``harmony_tpu_torch/csrc/miller.cuh`` holds the doubling and addition
-steps and the whole loop that ``miller_loop.cu`` runs on the card, as
-phases of independent tasks; ``csrc/fp384.cuh`` holds the Fermat chain
-that ``fp_inv.cu`` runs.  Outside nvcc both are plain C++, so here g++
+``harmony_tpu_torch/csrc/miller.cuh`` holds the plans that
+``miller_loop.cu`` runs on the card: a doubling (the step, f^2 beside it,
+f times the tangent), an addition (the step, f times the chord), and the
+loop over |x|'s schedule; ``csrc/fp384.cuh`` holds the Fermat chain that
+``fp_inv.cu`` runs.  Outside nvcc both are plain C++, so here g++
 compiles them through a small host harness, with the header the kernel
-build generates, and ctypes loads the result.  As for the Fp12 plans
-(tests/test_torch_fp12_host.py), the harness runs each phase's tasks
-forward, in reverse, and isolated (every task sees the scratch area as
-the phase found it; two tasks writing one word fail), on a scratch area
-poisoned with non-canonical words.
+build generates, and ctypes loads the result.  The harness is the plans'
+runner of tests/test_torch_fp12_host.py: each phase's tasks run forward,
+in reverse, and isolated (every task sees the scratch area as the phase
+found it; two tasks writing one word fail), on a scratch area poisoned
+with non-canonical words, and every product is the split product with
+its threads run step by step.
 
 The results must equal the port's plain versions (``ops/pairing.py``
-``_dbl_step``, ``_add_step`` and ``miller_loop_reference``, ``ops/fp.py``
-``inv_reference``) and, for the inverse, Python's ``pow``: tolerance 0,
-exact integer work with unique canonical limbs.  The steps are
-polynomials, so random Fp2 values stand for the points; zero lanes are
-among them.  Without g++ the tests skip.
+``_dbl_step``, ``_add_step`` and ``miller_loop_reference``,
+``ops/towers.py`` ``fp12_sqr_reference`` and ``fp12_mul_reference``,
+``ops/fp.py`` ``inv_reference``) and, for the inverse, Python's ``pow``:
+tolerance 0, exact integer work with unique canonical limbs.  The steps
+are polynomials, so random Fp2 values stand for the points and a random
+Fp12 value for f; zero lanes are among them.  Without g++ the tests skip.
 """
 
 import ctypes
@@ -35,89 +38,36 @@ from harmony_tpu_torch.ops import fp as TFP
 from harmony_tpu_torch.ops import interop as TI
 from harmony_tpu_torch.ops import pairing as TPR
 from harmony_tpu_torch.ops import schedule as S
+from harmony_tpu_torch.ops import towers as TT
 from test_torch_fp import P, _limbs
+from test_torch_fp12_host import HOST_RUNNER
 
-_HOST_SRC = r"""
-#include <cstddef>
-#include <cstdint>
-#include <vector>
-
+_HOST_SRC = HOST_RUNNER + r"""
 #include "miller.cuh"
 
 namespace {
 
+using host::load;
+using host::store;
 constexpr int kWords = fp384::kWords;
 constexpr int kLimbs = fp384::kLimbs;
 
-void load(const int32_t* src, uint32_t* s, int i) {
-  uint32_t l[kLimbs], w[kWords];
-  for (int k = 0; k < kLimbs; ++k) l[k] = static_cast<uint32_t>(src[k]);
-  fp384::pack(l, w);
-  fp12::st(s, i, w);
-}
-
-void store(const uint32_t* s, int i, int32_t* dst) {
-  uint32_t l[kLimbs], w[kWords];
-  fp12::ld(s, i, w);
-  fp384::unpack(w, l);
-  for (int k = 0; k < kLimbs; ++k) dst[k] = static_cast<int32_t>(l[k]);
-}
-
-// Run the n tasks of one phase on scratch s: order 0 forward, 1 in
-// reverse, 2 isolated (each task on a copy of s as the phase found it;
-// the words it changed are merged back, and two tasks changing one word
-// is an error).  Returns false on such a conflict.
-template <class Task>
-bool run_phase(std::vector<uint32_t>& s, int n, int order, Task task) {
-  if (order < 2) {
-    for (int i = 0; i < n; ++i) task(order ? n - 1 - i : i, s.data());
-    return true;
-  }
-  const std::vector<uint32_t> before = s;
-  std::vector<int> writer(s.size(), -1);
-  for (int k = 0; k < n; ++k) {
-    std::vector<uint32_t> mine = before;
-    task(k, mine.data());
-    for (std::size_t j = 0; j < s.size(); ++j) {
-      if (mine[j] == before[j]) continue;
-      if (writer[j] >= 0) return false;
-      writer[j] = k;
-      s[j] = mine[j];
-    }
-  }
-  return true;
-}
-
-bool run_op(std::vector<uint32_t>& s, int op, int order) {
-  for (int phase = 0; phase < miller::op_phases(op); ++phase) {
-    if (!run_phase(s, miller::op_tasks(op, phase), order,
-                   [op, phase](int k, uint32_t* x) {
-                     miller::op_task(op, phase, k, x);
-                   })) {
-      return false;
-    }
-  }
-  return true;
-}
-
-// A scratch area full of words that are no canonical element, P and Q of
-// one lane loaded as the kernel loads them, and the init operation run.
-bool start(std::vector<uint32_t>& s, const int32_t* p, const int32_t* q,
-           int order) {
-  for (auto& w : s) w = 0xa5a5a5a5u;
+// A scratch area full of words that are no canonical element, and P and
+// Q of one lane loaded as the kernel loads them.
+void start(std::vector<uint32_t>& s, const int32_t* p, const int32_t* q) {
+  host::poison(s);
   for (int e = 0; e < 2; ++e) load(p + e * kLimbs, s.data(), miller::kXp + e);
   for (int e = 0; e < 4; ++e) load(q + e * kLimbs, s.data(), miller::kXq + e);
-  return run_op(s, miller::kInit, order);
 }
 
 }  // namespace
 
-// The loop's operations between init and conj, in order; returns their
-// count (at most n are written).
-extern "C" int host_miller_schedule(int32_t* ops, int n) {
-  const int steps = miller::steps();
-  for (int i = 0; i < steps && i < n; ++i) ops[i] = miller::step_op(i);
-  return steps;
+// The number of doublings, and per doubling 1 if an addition follows.
+extern "C" int host_miller_schedule(int32_t* adds, int n) {
+  for (int i = 0; i < miller::kDoublings && i < n; ++i) {
+    adds[i] = static_cast<int32_t>(miller::kAdditions >> i & 1u);
+  }
+  return miller::kDoublings;
 }
 
 // The whole loop, lane by lane, as the kernel runs it.  Returns 0, or -1
@@ -126,10 +76,8 @@ extern "C" int host_miller_loop(const int32_t* p, const int32_t* q,
                                 int32_t* out, int64_t lanes, int order) {
   std::vector<uint32_t> s(miller::kScratch * kWords);
   for (int64_t lane = 0; lane < lanes; ++lane) {
-    bool ok = start(s, p + lane * 2 * kLimbs, q + lane * 4 * kLimbs, order);
-    const int steps = miller::steps();
-    for (int i = 0; ok && i < steps; ++i) ok = run_op(s, miller::step_op(i), order);
-    if (!ok || !run_op(s, miller::kConj, order)) return -1;
+    start(s, p + lane * 2 * kLimbs, q + lane * 4 * kLimbs);
+    if (!miller::loop(host::Runner{&s, order})) return -1;
     for (int e = 0; e < fp12::kElems; ++e) {
       store(s.data(), miller::kF + e, out + (lane * fp12::kElems + e) * kLimbs);
     }
@@ -137,26 +85,33 @@ extern "C" int host_miller_loop(const int32_t* p, const int32_t* q,
   return 0;
 }
 
-// One doubling (op kDbl) or addition (op kAdd) of the twist point t
-// (X, Y, Z) against P and the affine Q: the new point into t_out and the
-// line, as the dense Fp12 operand b, into line.  Returns 0 or -1 as above.
+// One doubling (op 0) or addition (op 1) of the loop from f, the twist
+// point t (X, Y, Z), P and the affine Q: the new f into f_out, the new
+// point into t_out and the line, as the dense Fp12 operand b, into line.
+// Returns 0 or -1 as above.
 extern "C" int host_miller_step(int op, const int32_t* p, const int32_t* q,
-                                const int32_t* t, int32_t* t_out,
-                                int32_t* line, int64_t lanes, int order) {
+                                const int32_t* f, const int32_t* t,
+                                int32_t* f_out, int32_t* t_out, int32_t* line,
+                                int64_t lanes, int order) {
   std::vector<uint32_t> s(miller::kScratch * kWords);
+  const host::Runner run{&s, order};
   for (int64_t lane = 0; lane < lanes; ++lane) {
-    if (!start(s, p + lane * 2 * kLimbs, q + lane * 4 * kLimbs, order)) {
-      return -1;
-    }
+    start(s, p + lane * 2 * kLimbs, q + lane * 4 * kLimbs);
+    if (!run(miller::Start{})) return -1;
     for (int e = 0; e < 6; ++e) {
       load(t + (lane * 6 + e) * kLimbs, s.data(), miller::kX + e);
     }
-    if (!run_op(s, op, order)) return -1;
+    for (int e = 0; e < fp12::kElems; ++e) {
+      load(f + (lane * fp12::kElems + e) * kLimbs, s.data(), miller::kF + e);
+    }
+    if (!(op == 0 ? run(miller::Double{}) : run(miller::Add{}))) return -1;
     for (int e = 0; e < 6; ++e) {
       store(s.data(), miller::kX + e, t_out + (lane * 6 + e) * kLimbs);
     }
     for (int e = 0; e < fp12::kElems; ++e) {
-      store(s.data(), miller::kB + e, line + (lane * fp12::kElems + e) * kLimbs);
+      const int64_t at = (lane * fp12::kElems + e) * kLimbs;
+      store(s.data(), miller::kF + e, f_out + at);
+      store(s.data(), miller::kB + e, line + at);
     }
   }
   return 0;
@@ -175,7 +130,7 @@ extern "C" void host_fp_inv(const int32_t* a, int32_t* out, int64_t rows) {
 """
 
 _ORDERS = {"forward": 0, "reverse": 1, "isolated": 2}
-_OPS = {"init": 0, "copy": 1, "mul": 2, "dbl": 3, "add": 4}
+_OPS = {"dbl": 0, "add": 1}
 R = 1 << 384
 
 
@@ -199,7 +154,7 @@ def host_lib(tmp_path_factory):
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.host_miller_schedule.argtypes = [ptr, i32]
     lib.host_miller_loop.argtypes = [ptr] * 3 + [i64, i32]
-    lib.host_miller_step.argtypes = [i32] + [ptr] * 5 + [i64, i32]
+    lib.host_miller_step.argtypes = [i32] + [ptr] * 7 + [i64, i32]
     lib.host_fp_inv.argtypes = [ptr, ptr, i64]
     lib.host_fp_inv.restype = None
     return lib
@@ -218,61 +173,69 @@ def _canonical(g, *shape):
 
 
 def _step_inputs(seed):
-    """P (lanes, 2, 32), Q (lanes, 2, 2, 32) and T (lanes, 3, 2, 32) for
-    six lanes: random, then with Z = 0, with Y = 0, all of T zero, P zero,
-    and Q zero."""
+    """P (lanes, 2, 32), Q (lanes, 2, 2, 32), T (lanes, 3, 2, 32) and f
+    (lanes, 2, 3, 2, 32) for six lanes: random, then with Z = 0, with
+    Y = 0, all of T zero, P zero, and Q zero."""
     g = np.random.default_rng(seed)
-    p, q, t = _canonical(g, 6, 2), _canonical(g, 6, 2, 2), _canonical(g, 6, 3, 2)
+    p, q = _canonical(g, 6, 2), _canonical(g, 6, 2, 2)
+    t = _canonical(g, 6, 3, 2)
     t[1, 2] = 0
     t[2, 1] = 0
     t[3] = 0
     p[4] = 0
     q[5] = 0
-    return p, q, t
+    return p, q, t, _canonical(g, 6, 2, 3, 2)
 
 
 _STEP_CASES = {"random lanes": 0x4D11, "other random lanes": 0x4D12}
 
 
-def _plain_step(op, p, q, t):
+def _plain_step(op, p, q, t, f):
     """The plain port's step on the same inputs: the new point stacked
-    (lanes, 3, 2, 32), and the line as the dense Fp12 the loop builds."""
-    p, q, t = (torch.from_numpy(x) for x in (p, q, t))
+    (lanes, 3, 2, 32), the line as the dense Fp12 the loop builds, and
+    f^2 times the tangent (doubling) or f times the chord (addition)."""
+    p, q, t, f = (torch.from_numpy(x) for x in (p, q, t, f))
     xp, yp = p[:, 0], p[:, 1]
     x, y, z = t[:, 0], t[:, 1], t[:, 2]
     if op == "dbl":
         point, line = TPR._dbl_step(x, y, z, TPR._small(xp, 3), yp)
+        f = TT.fp12_sqr_reference(f)
     else:
         point, line = TPR._add_step(x, y, z, q[:, 0], q[:, 1], xp, yp)
-    return (torch.stack(point, dim=1).numpy(),
-            TPR._sparse_line_to_fp12(*line).numpy())
+    line = TPR._sparse_line_to_fp12(*line)
+    return (torch.stack(point, dim=1).numpy(), line.numpy(),
+            TT.fp12_mul_reference(f, line).numpy())
 
 
 @pytest.mark.parametrize("order", sorted(_ORDERS))
 @pytest.mark.parametrize("case", sorted(_STEP_CASES))
 @pytest.mark.parametrize("op", ["add", "dbl"])
 def test_step_equals_the_plain_step(host_lib, op, case, order):
-    p, q, t = _step_inputs(_STEP_CASES[case])
-    t_out, line = np.empty_like(t), np.empty((6, 2, 3, 2, 32), np.int32)
-    rc = host_lib.host_miller_step(_OPS[op], _ptr(p), _ptr(q), _ptr(t),
-                                   _ptr(t_out), _ptr(line), 6, _ORDERS[order])
+    """One doubling or addition plan of miller.cuh (the step, and f^2 and
+    f times the line beside it), each phase run forward, in reverse and
+    isolated, on a poisoned scratch area."""
+    p, q, t, f = _step_inputs(_STEP_CASES[case])
+    t_out, line = np.empty_like(t), np.empty_like(f)
+    f_out = np.empty_like(f)
+    rc = host_lib.host_miller_step(_OPS[op], _ptr(p), _ptr(q), _ptr(f),
+                                   _ptr(t), _ptr(f_out), _ptr(t_out),
+                                   _ptr(line), 6, _ORDERS[order])
     assert rc == 0, "two tasks of one phase write the same word"
-    want_t, want_line = _plain_step(op, p, q, t)
+    want_t, want_line, want_f = _plain_step(op, p, q, t, f)
     np.testing.assert_array_equal(t_out, want_t)
     np.testing.assert_array_equal(line, want_line)
+    np.testing.assert_array_equal(f_out, want_f)
 
 
 def test_schedule_replays_the_plain_loop(host_lib):
-    """The operations between init and conj are the plain loop's: per
-    doubling b = f, f^2, the step, f times the line; per addition the
-    step, f times the line; over |x|'s segments."""
+    """The loop's doublings and the additions after them are the plain
+    loop's, over |x|'s segments."""
     want = []
     for n_dbl, do_add in zip(*S.X_SCHED):
-        want += [_OPS["copy"], _OPS["mul"], _OPS["dbl"], _OPS["mul"]] * n_dbl
-        want += [_OPS["add"], _OPS["mul"]] * do_add
-    ops = np.zeros(len(want) + 8, np.int32)
-    assert host_lib.host_miller_schedule(_ptr(ops), len(ops)) == len(want)
-    assert ops[:len(want)].tolist() == want
+        want += [0] * (n_dbl - 1) + [do_add]
+    adds = np.full(len(want) + 8, -1, np.int32)
+    assert host_lib.host_miller_schedule(_ptr(adds), len(adds)) == len(want)
+    assert adds[:len(want)].tolist() == want
 
 
 @pytest.fixture(scope="module")
