@@ -5,10 +5,11 @@
 
 Run from the root of a checkout on a machine with one CUDA card.  It
 
-1. prints the card's name and power limit and builds the six CUDA
+1. prints the card's name and power limit and builds the seven CUDA
    kernels (harmony_tpu_torch/csrc/mont_mul.cu, fp_addsub.cu,
-   fp12_mul.cu, fp12_cyclo_sqr.cu, miller_loop.cu and fp_inv.cu, one
-   library) from the checkout, with the build's time, each kernel's
+   fp12_mul.cu, fp12_cyclo_sqr.cu, miller_loop.cu, fp_inv.cu and
+   g1_masked_sum.cu, one library) from the checkout, with the build's
+   time, each kernel's
    registers, stack frame, spills and shared memory (ptxas) and SASS
    instructions (cuobjdump); miller_loop and fp12_cyclo_sqr must have
    no stack frame and no spills;
@@ -20,12 +21,13 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    mainnet width (a 200-slot committee, bucket 256): one quorum
    certificate and its forgeries, a replay batch of 64 headers, 8
    single checks and one check from payload bytes, each verdict as
-   constructed; it shows that every entry point went through all six
-   kernels, holds one quorum check to its launch limits, and counts the
-   other tensor ops each call issues;
+   constructed; it shows that every entry point went through the kernels
+   of its path (all seven for the quorum checks; all but the masked G1
+   sum for the single checks), holds one quorum check to its launch
+   limits, and counts the other tensor ops each call issues;
 4. holds a pairing product on the card against the CPU plain path, and
-   profiles one Fp12 product and one quorum check (wall time against
-   device time, split by kernel);
+   profiles one Fp12 product, one quorum check, one replay batch and 8
+   single checks (wall time against device time, split by kernel);
 5. prints a JSON line describing each kernel, then, last,
    {"ok": true, "device": {...}}.
 
@@ -65,19 +67,34 @@ INT32_OPS_PER_S = 16.75e12
 # harmony_tpu_torch/ops/towers.py fp12_sqr_reference), 54 for f times the
 # line and 34 for the step, per addition 54 + 44: 63 x 124 + 5 x 98
 # products (a sparse line product would need fewer; the kernel makes
-# 9,436, squaring by the 54-product plan).  Per row,
-# fp_inv reads a and writes its inverse, and makes 380 squarings and 228
-# products.  The adds and subs around the products are left out of the
-# operations: a few per cent more.
+# 9,436, squaring by the 54-product plan).  The adds and subs around the
+# products are left out of the operations: a few per cent more.  fp_inv
+# and g1_masked_sum do work that depends on their inputs, counted from
+# each run's data (inv_work, g1_work): per row, fp_inv reads a and writes
+# its inverse; its binary GCD takes some 270 steps of INV_STEP_OPS word
+# operations (a 12-word subtraction; a modular subtraction, 36; a 12-word
+# shift; the coefficient's division by 2^k, 12 word products of 2 IMAD
+# and a shift, subtraction and select of 12 words each, 60), then one
+# Montgomery product.  Per lane, g1_masked_sum reads the points and the
+# mask and writes the sum and its affine form; its products are those of
+# the lane's tree on this data (g1_tree): an add with infinity needs none,
+# an add of two finite points 16, 11 where one has Z = 1 (an affine leaf,
+# or one passed up against infinity) and 6 where both have; an add of
+# equal or opposite points needs only the 8, 4 or 0 products that find
+# them so, and the doubling 7 (6 where Z = 1).  Then the inversion of Z
+# and 4 products for the affine form, unless the sum is infinity or still
+# has Z = 1.
 MONT_IMAD = 2 * 288
 MILLER_PRODUCTS = 63 * (36 + 54 + 34) + 5 * (54 + 44)
-INV_PRODUCTS = 380 + 228
+INV_STEP_OPS = 12 + 36 + 12 + 60
+# by the number of operands with Z = 1: 0, 1, 2
+G1_ADD_PRODUCTS = (16, 11, 6)
+G1_MATCH_PRODUCTS = (8, 4, 0)
 WORK = {"mont_mul": (3 * 128, MONT_IMAD), "add": (3 * 128, 3 * 12),
         "sub": (3 * 128, 3 * 12), "neg": (2 * 128, 3 * 12),
         "fp12_mul": (3 * 12 * 128, 54 * MONT_IMAD),
         "fp12_cyclo_sqr": (2 * 12 * 128, 18 * MONT_IMAD),
-        "miller_loop": ((2 + 4 + 12) * 128, MILLER_PRODUCTS * MONT_IMAD),
-        "fp_inv": (2 * 128, INV_PRODUCTS * MONT_IMAD)}
+        "miller_loop": ((2 + 4 + 12) * 128, MILLER_PRODUCTS * MONT_IMAD)}
 
 # Rows per call at the shapes timed: one fp12_mul at 64 lanes (54 products
 # x 64), 2^16, and the largest call the slice makes.  That is the first
@@ -100,19 +117,26 @@ MILLER_LANES = {"2": (2,), "2x64": (2, 64)}
 # lane counts each redesigned kernel is also held at: one block per lane
 MILLER_EDGE_LANES = (1, 3, 127, 129)
 CYCLO_EDGE_LANES = (1, 5, 64, 65)
-INV_ROWS = (1, 3, 3456)
+INV_ROWS = (1, 3, 64, 3456)
 INV_TIMED_ROWS = (1, 64)
-# what one quorum check may launch, now that the Miller loop and the
-# Fermat inversions are one launch each
-QC_LAUNCHES = {"miller_loop": (1, 1), "fp_inv": (2, 2),
-               "fp_addsub": (0, 400), "mont_mul": (0, 150),
-               "fp12_mul": (0, 40), "fp12_cyclo_sqr": (0, 40)}
+# the masked G1 sum: the buckets held at (the smallest, mainnet's, the
+# largest), the lane counts of the (N, B) form at bucket 256, and the
+# lanes timed (a quorum check's 1; the replay batch's 64)
+G1_BUCKETS = (8, 256, 1024)
+G1_LANES = (1, 3, 64, 256)
+G1_TIMED_LANES = (1, 64)
+# what one quorum check may launch, now that the Miller loop, the Fp12
+# inversion and the masked G1 sum with its affine form are one launch each
+QC_LAUNCHES = {"miller_loop": (1, 1), "fp_inv": (1, 1),
+               "g1_masked_sum": (1, 1), "fp_addsub": (0, 110),
+               "mont_mul": (0, 15), "fp12_mul": (0, 40),
+               "fp12_cyclo_sqr": (0, 40)}
 
 # the functions of the path to which count_ops assigns launches and ops,
 # the innermost on the stack winning
-SOURCES = ("masked_sum", "to_affine", "miller_loop", "fp12_tree_reduce",
-           "final_exponentiation", "verify", "agg_verify",
-           "agg_verify_batch", "agg_verify_hashed_on_device",
+SOURCES = ("masked_sum", "masked_sum_to_affine", "to_affine", "miller_loop",
+           "fp12_tree_reduce", "final_exponentiation", "verify",
+           "agg_verify", "agg_verify_batch", "agg_verify_hashed_on_device",
            "agg_verify_batch_on_device", "verify_many_on_device")
 
 COMMITTEE = 200  # Harmony mainnet: 200 slots per shard (epoch >= 1673)
@@ -165,18 +189,19 @@ def canonical_limbs(rng, shape):
 
 
 KERNELS = ("mont_mul", "fp_addsub", "fp12_mul", "fp12_cyclo_sqr",
-           "miller_loop", "fp_inv")
+           "miller_loop", "fp_inv", "g1_masked_sum")
 
 
 def wrappers():
     """Each kernel's wrapper module, by kernel name; each counts its
     launches in ``LAUNCHES``."""
     from harmony_tpu_torch.kernels import fp12_cyclo_sqr, fp12_mul, \
-        fp_addsub, fp_inv, miller_loop, mont_mul
+        fp_addsub, fp_inv, g1_masked_sum, miller_loop, mont_mul
 
     return {"mont_mul": mont_mul, "fp_addsub": fp_addsub,
             "fp12_mul": fp12_mul, "fp12_cyclo_sqr": fp12_cyclo_sqr,
-            "miller_loop": miller_loop, "fp_inv": fp_inv}
+            "miller_loop": miller_loop, "fp_inv": fp_inv,
+            "g1_masked_sum": g1_masked_sum}
 
 
 def launches():
@@ -292,10 +317,121 @@ def bound(op, rows, n=1):
     fp12_cyclo_sqr), from the bytes it must move and the operations it
     must do, at the published peaks."""
     nbytes, ops = WORK[op]
-    by_bytes = rows * nbytes / HBM_BYTES_PER_S
-    by_ops = rows * ops * n / INT32_OPS_PER_S
+    return roofline(rows * nbytes, rows * ops * n)
+
+
+def roofline(nbytes, ops):
+    """(ms, what bounds it) for ``nbytes`` moved and ``ops`` int32
+    operations at the published peaks."""
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = ops / INT32_OPS_PER_S
     return 1e3 * max(by_bytes, by_ops), (
         "bytes" if by_bytes >= by_ops else "operations")
+
+
+def gcd_steps(x):
+    """The steps of csrc/fp384.cuh inv's binary GCD on the plain integer x
+    (a R mod p for Montgomery limbs of a): each step one subtraction and
+    the stripping of its factors of 2."""
+    from harmony_tpu_torch.ref.params import P
+
+    u, v = x, P
+    if u == 0:
+        return 0
+    u >>= (u & -u).bit_length() - 1
+    steps = 0
+    while u != v:
+        steps += 1
+        if u > v:
+            u -= v
+            u >>= (u & -u).bit_length() - 1
+        else:
+            v -= u
+            v >>= (v & -v).bit_length() - 1
+    return steps
+
+
+def inv_ops(limbs):
+    """The int32 operations of inverting the rows of ``limbs`` (..., 32):
+    the GCD's steps on each row's value, and one Montgomery product."""
+    from harmony_tpu_torch.ops.limbs import limbs_to_int
+
+    values = [limbs_to_int(r) for r in limbs.reshape(-1, 32).cpu().numpy()]
+    return sum(gcd_steps(x) * INV_STEP_OPS + MONT_IMAD for x in values if x)
+
+
+def inv_work(limbs):
+    """(ms, what bounds it) of fp_inv on these limbs: read and write each
+    row once, and the steps this data needs."""
+    return roofline(limbs.numel() // 32 * 2 * 128, inv_ops(limbs))
+
+
+def g1_tree(keys, bits):
+    """(Montgomery products, whether the sum has Z = 1) of one lane of the
+    masked G1 sum on these keys (host affine points, None for a pad row)
+    with Z = 1 where ``z_one`` and mask words ``bits``: the tree of
+    masked_sum run on the host, each add counted by what its operands
+    need (the table above WORK)."""
+    from harmony_tpu_torch.ref.curve import g1
+
+    keys, z_one = keys
+    nodes = [(k, z) if b == 1 and k is not None else (None, False)
+             for k, z, b in zip(keys, z_one, bits)]
+    size = 1
+    while size < len(nodes):
+        size *= 2
+    nodes += [(None, False)] * (size - len(nodes))
+    products = 0
+    while len(nodes) > 1:
+        half = len(nodes) // 2
+        level = []
+        for (p, p_one), (q, q_one) in zip(nodes[:half], nodes[half:]):
+            if p is None or q is None:  # passed up as it is
+                level.append((q, q_one) if p is None else (p, p_one))
+                continue
+            ones = p_one + q_one
+            if p[0] == q[0]:  # equal or opposite: found, then doubled
+                products += G1_MATCH_PRODUCTS[ones]
+                if p[1] == q[1]:
+                    products += 6 if p_one else 7
+            else:
+                products += G1_ADD_PRODUCTS[ones]
+            level.append((g1.add(p, q), False))
+        nodes = level
+    return products, nodes[0][1]
+
+
+def g1_keys(points):
+    """The rows of a G1 table ((N, C, 32) on the card) as (host affine
+    points, None for infinity; whether each has Z = 1)."""
+    from harmony_tpu_torch.ops import interop as I
+
+    rows = points.reshape(points.shape[0], *points.shape[-2:]).cpu()
+    if rows.shape[-2] == 3:  # Jacobian: Z as it is
+        return [I.arr_to_g1_affine(r) for r in rows], [False] * len(rows)
+    keys = [None if not r.any() else (I.arr_to_fp(r[0]), I.arr_to_fp(r[1]))
+            for r in rows]
+    return keys, [True] * len(rows)
+
+
+def g1_work(points, mask, sums):
+    """(ms, what bounds it) of g1_masked_sum on these inputs, whose
+    Jacobian sums (from the plain version) are ``sums``: read the points
+    and the mask, write each lane's sum and affine form; the products of
+    each lane's tree on this data (g1_tree), and, where the sum is finite
+    without Z = 1, the inversion of its Z and 4 products."""
+    keys = g1_keys(points)
+    m = mask.reshape(mask.shape[0], -1).cpu().tolist()
+    sums = sums.reshape(-1, *sums.shape[-2:])
+    lanes = len(m[0])
+    ops = 0
+    for b in range(lanes):
+        products, z_one = g1_tree(keys, [row[b] for row in m])
+        ops += products * MONT_IMAD
+        if not z_one and sums[b, 2].any():
+            ops += inv_ops(sums[b, 2]) + 4 * MONT_IMAD
+    nbytes = points.numel() * 4 + mask.numel() * 4 + lanes * (3 + 2) * 128
+    return roofline(nbytes, ops)
 
 
 def _compare(name, got, want, stats):
@@ -489,11 +625,13 @@ def timing_phase(seed):
 
 @contextlib.contextmanager
 def plain_fp():
-    """Within: the dispatchers of ops/fp.py, ops/towers.py and
-    ops/pairing.py are their plain PyTorch versions, so the plain
+    """Within: the dispatchers of ops/fp.py, ops/towers.py,
+    ops/pairing.py and ops/curve.py (with the Fp dispatchers that
+    ``curve.FP_OPS`` holds) are their plain PyTorch versions, so the plain
     compositions (``*_reference``) run on the card without a hand
     kernel, as the plain versions the fused kernels are held against and
     timed beside.  Checks that no hand kernel launched."""
+    from harmony_tpu_torch.ops import curve as CV
     from harmony_tpu_torch.ops import fp
     from harmony_tpu_torch.ops import pairing as PR
     from harmony_tpu_torch.ops import towers as T
@@ -505,10 +643,16 @@ def plain_fp():
 
     swaps = [(fp, n, getattr(fp, f"{n}_reference"))
              for n in ("add", "sub", "neg", "mont_mul", "inv")]
+    swaps += [(CV.FP_OPS, n, getattr(fp, f"{m}_reference"))
+              for n, m in (("mul", "mont_mul"), ("add", "add"),
+                           ("sub", "sub"), ("neg", "neg"), ("inv", "inv"))]
     swaps += [(T, "fp12_mul", T.fp12_mul_reference),
               (T, "fp12_sqr", T.fp12_sqr_reference),
               (T, "fp12_cyclo_sqr_n", cyclo_sqr_n),
-              (PR, "miller_loop", PR.miller_loop_reference)]
+              (PR, "miller_loop", PR.miller_loop_reference),
+              (CV, "masked_sum", CV.masked_sum_reference),
+              (CV, "masked_sum_to_affine",
+               CV.masked_sum_to_affine_reference)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     before = launches()
     try:
@@ -762,10 +906,10 @@ def miller_phase(seed, stats):
 
 
 def inv_phase(seed, stats):
-    """The fp_inv kernel against the plain Fermat chain (plain PyTorch on
-    the card, no hand kernel launched), bit for bit, at 1, 3 and 3,456
-    rows with 0, 1 and p - 1 among them; the rows also against the host
-    bigint."""
+    """The fp_inv kernel (the binary GCD) against the plain Fermat chain
+    (plain PyTorch on the card, no hand kernel launched), bit for bit, at
+    1, 3, 64 and 3,456 rows with 0, 1 and p - 1 among them; the rows also
+    against the host bigint."""
     import torch
 
     from harmony_tpu_torch.kernels import fp_inv as KI
@@ -793,22 +937,170 @@ def inv_phase(seed, stats):
     log("fp_inv kernel == host bigint a^(p-2) on the rows checked")
 
 
-def loop_timing_phase(seed):
-    """miller_loop and fp_inv at the path's shapes: wrapper-inclusive ms
-    by CUDA events, the kernel's own device time by torch.profiler, the
-    plain version's ms (plain PyTorch on the card), the ms of the
-    composition over the Fp and Fp12 kernels that the kernel replaced,
-    the bound, and the wrapper's host cost per call."""
+def g1_committee(rng, n):
+    """n affine G1 keys (reference points) cheaply: k_i G for k_i = k_0 +
+    i d."""
+    from harmony_tpu_torch.ref.curve import G1_GEN, g1
+    from harmony_tpu_torch.ref.params import R_ORDER
+
+    step = g1.mul(G1_GEN, rng.randrange(1, R_ORDER))
+    keys = [g1.mul(G1_GEN, rng.randrange(1, R_ORDER))]
+    for _ in range(n - 1):
+        keys.append(g1.add(keys[-1], step))
+    return keys
+
+
+def g1_tables(rng, keys):
+    """(affine (n, 2, 32), Jacobian (n, 3, 32) with random Z) limbs of the
+    keys, on the card; None is a pad row (0, 0), (0, 0, 0) in Jacobian."""
+    import numpy as np
+    import torch
+
+    from harmony_tpu_torch.ops.limbs import ints_to_limbs
+    from harmony_tpu_torch.ref.params import P
+
+    def mont(xs):
+        return ints_to_limbs([x * (1 << 384) % P for x in xs])
+
+    aff, jac = [], []
+    for pt in keys:
+        if pt is None:
+            aff.append(mont([0, 0]))
+            jac.append(mont([0, 0, 0]))
+            continue
+        (x, y), z = pt, rng.randrange(1, P)
+        aff.append(mont([x, y]))
+        jac.append(mont([x * z * z % P, y * z * z * z % P, z]))
+    return (torch.from_numpy(np.stack(aff)).cuda(),
+            torch.from_numpy(np.stack(jac)).cuda())
+
+
+def g1_masks(rng, n, lanes):
+    """(n, lanes) int32 masks on the card: the special cases first (no
+    key, every key, one key, a key twice, a key and its negative, a pad
+    row, mask words other than 0 and 1), then random masks of 2/3 of the
+    keys; the table puts keys[0] again at row n/2, -keys[1] at row n/2 +
+    1 and the pad row last (g1_sum_phase)."""
+    import torch
+
+    half, cases = n // 2, []
+    for on in ((), range(n), (3,), (0, half), (1, half + 1), (2, n - 1),
+               (n - 1,)):
+        col = [0] * n
+        for i in on:
+            col[i] = 1
+        cases.append(col)
+    cases.append([(2, 1, -1, 255, 0)[i % 5] for i in range(n)])
+    while len(cases) < lanes:
+        col = [0] * n
+        for i in rng.sample(range(n), 2 * n // 3):
+            col[i] = 1
+        cases.append(col)
+    return torch.tensor(cases[:lanes], dtype=torch.int32).T.contiguous() \
+        .cuda()
+
+
+def g1_sum_phase(seed, stats):
+    """The g1_masked_sum kernel against the plain masked_sum and to_affine
+    (plain PyTorch on the card, no hand kernel launched), bit for bit,
+    the Jacobian sum and the affine form: at buckets 8, 256 and 1024, one
+    lane per case (no key, every key, one key, a key twice, a key and its
+    negative, a pad row (0, 0), mask words other than 0 and 1, random
+    masks), from affine and from Jacobian points; the (N, B) form at B =
+    1, 3, 64 and 256 at bucket 256, and at B = 3 the sum alone, without
+    the affine form; and a quorum check's mask, 150 of 200 keys, also
+    against the host bigint."""
+    import torch
+
+    from harmony_tpu_torch.kernels import g1_masked_sum as KG
+    from harmony_tpu_torch.ops import curve as CV
+    from harmony_tpu_torch.ops import interop as I
+    from harmony_tpu_torch.ref.curve import g1
+
+    rng = random.Random(seed + 11)
+
+    def plain(points, mask):
+        with plain_fp():
+            jac = points if points.shape[-2] == 3 else \
+                CV.affine_to_jacobian_g1(points)
+            out = CV.masked_sum_reference(jac, mask, CV.FP_OPS)
+            ax, ay = CV.to_affine(out, CV.FP_OPS)
+            return out, torch.stack([ax, ay], dim=-2)
+
+    def compare(name, got, want):
+        _compare(f"g1_masked_sum, {name}, sum", got[0], want[0], stats)
+        _compare(f"g1_masked_sum, {name}, affine", got[1], want[1], stats)
+
+    for n in G1_BUCKETS:
+        keys = g1_committee(rng, n)
+        keys[n // 2], keys[n // 2 + 1], keys[n - 1] = (
+            keys[0], g1.neg(keys[1]), None)
+        tables = g1_tables(rng, keys)
+        mask = g1_masks(rng, n, 9 if n != 256 else max(G1_LANES))
+        for form, table in zip(("affine", "Jacobian"), tables):
+            if n == 1024 and form == "Jacobian":
+                continue
+            want = plain(table[:, None], mask)
+            for b in range(min(mask.shape[1], 9)):
+                compare(f"bucket {n}, {form} points, lane {b} as (N,)",
+                        KG.g1_masked_sum(table, mask[:, b]),
+                        (want[0][b], want[1][b]))
+            if n == 256 and form == "affine":
+                for lanes in G1_LANES:
+                    compare(f"bucket 256, (N, B) with B = {lanes}",
+                            KG.g1_masked_sum(table[:, None],
+                                             mask[:, :lanes]),
+                            (want[0][:lanes], want[1][:lanes]))
+                # the sum alone (masked_sum's launch): no affine form
+                got, none = KG.g1_masked_sum(table[:, None], mask[:, :3],
+                                             affine=False)
+                check(none is None, "g1_masked_sum made an affine form "
+                      "that was not asked for")
+                _compare("g1_masked_sum, bucket 256, B = 3, the sum alone",
+                         got, want[0][:3], stats)
+    # a quorum check: 150 of 200 keys in bucket 256, against the bigint
+    keys = g1_committee(rng, COMMITTEE)
+    aff = g1_tables(rng, keys + [None] * (256 - COMMITTEE))[0]
+    bits = [0] * 256
+    for i in rng.sample(range(COMMITTEE), QUORUM):
+        bits[i] = 1
+    mask = torch.tensor(bits, dtype=torch.int32).cuda()
+    got = KG.g1_masked_sum(aff, mask)
+    compare("a quorum check, 150 of 200 keys", got, plain(aff, mask))
+    want = None
+    for key, bit in zip(keys, bits):
+        if bit:
+            want = g1.add(want, key)
+    check(I.arr_to_g1_affine(got[0].cpu()) == want
+          and (I.arr_to_fp(got[1][0].cpu()), I.arr_to_fp(got[1][1].cpu()))
+          == want, "g1_masked_sum differs from the host bigint sum")
+    log("g1_masked_sum kernel == host bigint sum of a quorum check's keys")
+    return aff, mask
+
+
+def loop_timing_phase(seed, qc_keys, qc_mask, g1_stats):
+    """miller_loop, fp_inv and g1_masked_sum at the path's shapes:
+    wrapper-inclusive ms by CUDA events, the kernel's own device time by
+    torch.profiler, the plain version's ms (plain PyTorch on the card),
+    the ms of the composition over the other kernels that the kernel
+    replaced (for fp_inv, the Fermat chain over the mont_mul kernel), the
+    bound from this run's inputs, and the wrapper's host cost per call.
+    g1_masked_sum runs on a quorum check's affine table and mask (1 lane),
+    and on that table with 64 random masks of 2/3 of the keys (the replay
+    batch's 64 lanes), each held bit for bit against the plain version
+    first; its bound counts from the plain version's sums."""
     import numpy as np
     import torch
 
     from harmony_tpu_torch.kernels import fp_inv as KI
+    from harmony_tpu_torch.kernels import g1_masked_sum as KG
     from harmony_tpu_torch.kernels import miller_loop as KML
+    from harmony_tpu_torch.ops import curve as CV
     from harmony_tpu_torch.ops import fp
     from harmony_tpu_torch.ops import pairing as PR
 
     rng = np.random.default_rng(seed + 10)
-    timings = {"miller_loop": {}, "fp_inv": {}}
+    timings = {"miller_loop": {}, "fp_inv": {}, "g1_masked_sum": {}}
 
     def plain(fn):
         def run():
@@ -822,16 +1114,39 @@ def loop_timing_phase(seed):
         q = torch.from_numpy(canonical_limbs(rng, (*lead, 2, 2))).cuda()
         cases.append(("miller_loop", f"{shape} lanes", math.prod(lead),
                       lambda p=p, q=q: KML.miller_loop(p, q),
-                      lambda p=p, q=q: PR.miller_loop_reference(p, q)))
+                      lambda p=p, q=q: PR.miller_loop_reference(p, q),
+                      bound("miller_loop", math.prod(lead))))
     for rows in INV_TIMED_ROWS:
         a = torch.from_numpy(canonical_limbs(rng, (rows,))).cuda()
         cases.append(("fp_inv", f"{rows} rows", rows,
                       lambda a=a: KI.inv(a),
-                      lambda a=a: fp.inv_reference(a)))
-    for op, shape, n, kernel, composed in cases:
-        bound_ms, bound_by = bound(op, n)
+                      lambda a=a: fp.inv_reference(a), inv_work(a)))
+    for lanes in G1_TIMED_LANES:
+        if lanes == 1:
+            pts, mask = qc_keys, qc_mask
+        else:
+            pts = qc_keys[:, None]
+            mask = torch.from_numpy(
+                (rng.random((len(qc_keys), lanes)) < 2 / 3).astype(
+                    np.int32) * qc_mask.cpu().numpy()[:, None]).cuda()
+        # the plain sums: held against the kernel's, and counted from
+        with plain_fp():
+            sums = CV.masked_sum_reference(CV.affine_to_jacobian_g1(pts),
+                                           mask, CV.FP_OPS)
+            xy = CV.masked_sum_to_affine_reference(pts, mask)
+        got = KG.g1_masked_sum(pts, mask)
+        _compare(f"g1_masked_sum, timed at {lanes} lanes, sum", got[0], sums,
+                 g1_stats)
+        _compare(f"g1_masked_sum, timed at {lanes} lanes, affine", got[1],
+                 xy, g1_stats)
+        cases.append(("g1_masked_sum", f"{lanes} lanes", lanes,
+                      lambda p=pts, m=mask: KG.g1_masked_sum(p, m),
+                      lambda p=pts, m=mask:
+                      CV.masked_sum_to_affine_reference(p, m),
+                      g1_work(pts, mask, sums)))
+    for op, shape, n, kernel, composed, (bound_ms, bound_by) in cases:
         t = timings[op][shape] = {
-            "lanes" if op == "miller_loop" else "rows": n,
+            "rows" if op == "fp_inv" else "lanes": n,
             "ms": cuda_ms(kernel, 20),
             "device_ms": 1e-3 * device_us(kernel, op, 10),
             "plain_ms": cuda_ms(plain(composed), 1),
@@ -842,8 +1157,8 @@ def loop_timing_phase(seed):
         }
         log(f"{op} at {shape}: {t['ms']:.6f} ms with the wrapper, "
             f"{t['device_ms']:.6f} ms on the device, plain "
-            f"{t['plain_ms']:.6f} ms, composed over the Fp and Fp12 "
-            f"kernels {t['composed_ms']:.6f} ms, bound {bound_ms:.6f} ms "
+            f"{t['plain_ms']:.6f} ms, composed over the other kernels "
+            f"{t['composed_ms']:.6f} ms, bound {bound_ms:.6f} ms "
             f"({bound_by}), host {t['host_us_per_call']:.3f} us per call")
     return timings
 
@@ -991,7 +1306,7 @@ def slice_phase(seed):
     check(ok is True, "valid quorum certificate rejected (second call)")
     results["agg_verify_hashed_on_device"] = (ms, made, ops, wait)
     sources["agg_verify_hashed_on_device"] = src
-    qc = (fn, table, bits, h, sig)
+    calls = {"one quorum check": (fn, table, bits, h, sig)}
     for what, args in (("one bit flipped", (flipped, h, sig)),
                        ("wrong payload", (bits, hashes[1], sig)),
                        ("infinity signature", (bits, h, ((0, 0), (0, 0))))):
@@ -1029,6 +1344,7 @@ def slice_phase(seed):
     check(out == want, "replay batch verdicts (second call)")
     results["agg_verify_batch_on_device"] = (ms, made, ops, wait)
     sources["agg_verify_batch_on_device"] = src
+    calls["one replay batch of 64 headers"] = (fn, table, *args)
     log(f"agg_verify_batch_on_device: {len(lanes)} headers, "
         f"{sum(want)} valid and {len(want) - sum(want)} forged, as built")
 
@@ -1047,6 +1363,7 @@ def slice_phase(seed):
     check(out == expect, f"single checks {out} != {expect}")
     out, ms, made, wait = timed(fn, pk_pts, h_pts, sig_pts)
     check(out == expect, "single checks (second call)")
+    calls["8 single checks"] = (fn, pk_pts, h_pts, sig_pts)
     results["verify_many_on_device"] = (ms, made, ops, wait)
     sources["verify_many_on_device"] = src
     log(f"verify_many_on_device: {SINGLE_CHECKS} checks, "
@@ -1061,16 +1378,19 @@ def slice_phase(seed):
     log("verify_on_device: valid signature True")
 
     for name, (ms, made, ops, wait) in results.items():
+        # the single checks sum no mask
         for kernel, n in made.items():
-            check(n > 0, f"{name} never launched the {kernel} kernel")
+            if kernel != "g1_masked_sum" or name.startswith("agg_"):
+                check(n > 0, f"{name} never launched the {kernel} kernel")
         line = (f"{name}: {ms:.3f} ms per call ({wait:.3f} ms of it waiting "
                 f"for the card at the end), " + ", ".join(
                     f"{n} {kernel}" for kernel, n in made.items())
                 + " launches")
         if ops is not None:
             dispatches = sum(made.values()) + ops
-            line += (f" and {ops} other tensor ops per call "
-                     f"({1e3 * ms / dispatches:.3f} us per launch or op)")
+            line += (f" and {ops} other tensor ops per call: {dispatches} "
+                     f"host dispatches ({1e3 * ms / dispatches:.3f} us per "
+                     f"launch or op)")
         log(line)
         if name in sources:
             log(f"{name} by source: " + "; ".join(
@@ -1080,14 +1400,14 @@ def slice_phase(seed):
                 + f") + {c['ops']} other ops"
                 for src, c in sorted(sources[name].items(),
                                      key=lambda kv: -kv[1].total())))
-    # what fusing the towers, the Miller loop and the inversions must
-    # have left of one check's launches
+    # what fusing the towers, the Miller loop, the inversion and the masked
+    # sum must have left of one check's launches
     made = results["agg_verify_hashed_on_device"][1]
     for kernel, (least, most) in QC_LAUNCHES.items():
         check(least <= made[kernel] <= most,
               f"one quorum check launched {kernel} {made[kernel]} times, "
               f"not {least} to {most}")
-    return results, qc
+    return results, calls
 
 
 def gt_phase(seed):
@@ -1112,11 +1432,13 @@ def gt_phase(seed):
     log("pairing_product on the card == CPU plain path (GT, 2 pairs)")
 
 
-def profile_phase(seed, qc):
+def profile_phase(seed, entry_calls):
     """Where the time goes: one Fp12 product at 64 lanes (the fused
-    kernel, and the composition over the Fp kernels that it replaced) and
-    one quorum check (bucket 256); each one's wall time without a
-    profiler against the device time torch.profiler records, by kernel.
+    kernel, and the composition over the Fp kernels that it replaced),
+    and one call of each entry point the slice phase timed (``entry_calls``:
+    name -> (entry point, arguments); one quorum check, one replay batch,
+    8 single checks, bucket 256); each one's wall time without a profiler
+    against the device time torch.profiler records, by kernel.
     Device time is summed over the device's own rows: the rows of the
     ATen operators carry their kernels' time again."""
     import numpy as np
@@ -1131,8 +1453,9 @@ def profile_phase(seed, qc):
         "fp12_mul at 64 lanes": (lambda: T.fp12_mul(a, b), 20),
         "the composition over the Fp kernels at 64 lanes": (
             lambda: T.fp12_mul_reference(a, b), 20),
-        "one quorum check": (lambda: qc[0](*qc[1:]), 3),
     }
+    for name, (entry, *args) in entry_calls.items():
+        calls[name] = (lambda entry=entry, args=args: entry(*args), 3)
     out = {}
     for name, (fn, reps) in calls.items():
         with torch.inference_mode():
@@ -1212,21 +1535,23 @@ def main(argv=None):
     cyclo_phase(args.seed, stats["fp12_cyclo_sqr"])
     miller_phase(args.seed, stats["miller_loop"])
     inv_phase(args.seed, stats["fp_inv"])
+    qc_keys, qc_mask = g1_sum_phase(args.seed, stats["g1_masked_sum"])
     timings = timing_phase(args.seed)
     timings.update(tower_timing_phase(args.seed))
-    timings.update(loop_timing_phase(args.seed))
+    timings.update(loop_timing_phase(args.seed, qc_keys, qc_mask,
+                                     stats["g1_masked_sum"]))
 
     # the main path: launch counts start from zero here
     for module in wrappers().values():
         module.LAUNCHES = 0
-    _, qc = slice_phase(args.seed)
+    _, entry_calls = slice_phase(args.seed)
     path = launches()
     for name, n in path.items():
         check(n > 0, f"the main path never launched the {name} kernel")
     log("main path: " + ", ".join(f"{n} {name}" for name, n in path.items())
         + " launches")
     gt_phase(args.seed)
-    profile_phase(args.seed, qc)
+    profile_phase(args.seed, entry_calls)
 
     def entry(name, source, replaces, op, shape, described, kept):
         t = timings[op][shape]
@@ -1271,7 +1596,12 @@ def main(argv=None):
         entry("fp_inv", "harmony_tpu_torch/csrc/fp_inv.cu",
               "none: fuses harmony_tpu/ops/fp.py:224-245 (pow_fixed scan, "
               "fused by XLA)", "fp_inv", "1 rows",
-              "1 row, one of a quorum check's two inversions", ("fp_inv",)),
+              "1 row, a quorum check's inversion", ("fp_inv",)),
+        entry("g1_masked_sum", "harmony_tpu_torch/csrc/g1_masked_sum.cu",
+              "none: fuses harmony_tpu/ops/curve.py:235-262 masked_sum and "
+              ":220-231 to_affine (jnp, fused by XLA)", "g1_masked_sum",
+              "1 lanes", "bucket 256, 1 lane: a quorum check's 150 of 200 "
+              "keys", ("g1_masked_sum",)),
     ]
     log(f"chip_smoke took {time.perf_counter() - started:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,9 @@
 // 384-bit arithmetic over the BLS12-381 base field, one element per
 // thread, shared by the CUDA kernels (mont_mul.cu, fp_addsub.cu,
-// fp_inv.cu, and the tower kernels through fp12.cuh) and, as plain C++, by
-// the host tests of their arithmetic (tests/test_torch_fp384_host.py,
-// tests/test_torch_miller_host.py).
+// fp_inv.cu, g1_masked_sum.cu, and the tower kernels through fp12.cuh)
+// and, as plain C++, by the host tests of their arithmetic
+// (tests/test_torch_fp384_host.py, tests/test_torch_miller_host.py,
+// tests/test_torch_g1_host.py).
 //
 // The boundary format is the port's: 32 little-endian limbs of 12 bits,
 // canonical (< p).  Inside, an element is 12 little-endian words of 32 bits
@@ -13,16 +14,18 @@
 //
 // The modulus comes in as macros from a header that the build generates
 // from ops/_constants.py and pre-includes (kernels/_build.py):
-//   HARMONY_P_WORDS          p as 12 little-endian 32-bit words
-//   HARMONY_P_INV32          -p^-1 mod 2^32
-//   HARMONY_P_MINUS_2_WORDS  p - 2, the Fermat exponent, as 12 words
+//   HARMONY_P_WORDS   p as 12 little-endian 32-bit words
+//   HARMONY_P_INV32   -p^-1 mod 2^32
+//   HARMONY_R3_WORDS  R^3 mod p (R = 2^384) as 12 words: the Montgomery
+//                     product by it takes inv's plain inverse back into
+//                     the Montgomery domain
 
 #pragma once
 
 #include <cstdint>
 
 #if !defined(HARMONY_P_WORDS) || !defined(HARMONY_P_INV32) || \
-    !defined(HARMONY_P_MINUS_2_WORDS)
+    !defined(HARMONY_R3_WORDS)
 #error "build through harmony_tpu_torch/kernels/_build.py, which defines the modulus"
 #endif
 
@@ -34,6 +37,13 @@
 #define FP384_FN inline
 #define FP384_UNROLL
 #define FP384_ROLLED
+#endif
+
+#if defined(__CUDA_ARCH__)
+// One instruction of a PTX carry or borrow chain, d = a op b, the carry
+// kept in the condition code (add.cc/addc.cc, sub.cc/subc.cc).
+#define FP384_CHAIN(op, d, a, b) \
+  asm volatile(op " %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
 #endif
 
 namespace fp384 {
@@ -181,32 +191,164 @@ FP384_FN void mont_mul(const uint32_t a[kWords], const uint32_t b[kWords],
   cond_sub_p(t, out);
 }
 
-// a^(p - 2) = a^-1 mod p for canonical a in the Montgomery domain (the
-// inverse of a R is a^-1 R), with inv(0) = 0: Fermat's chain, left to
-// right over the bits of p - 2.  The top bit starts the chain at a; each
-// lower bit squares, and a set bit multiplies by a: 380 squarings and 228
-// products in a row for BLS12-381's p.  The plain version
-// (ops/fp.py inv_reference) squares 1 once more and multiplies it by a
-// first; both give the canonical residue, so the limbs agree.
-FP384_FN void inv(const uint32_t a[kWords], uint32_t out[kWords]) {
-  constexpr uint32_t e[kWords] = {HARMONY_P_MINUS_2_WORDS};
-  int top = 32 * kWords - 1;
-  while (!(e[top / 32] >> (top % 32) & 1u)) --top;
-  uint32_t acc[kWords], sq[kWords];
+// --- Inversion by a binary extended GCD --------------------------------
+//
+// Variable-time: its loop and branches follow the value.  Both inversions
+// on the verify path invert public values (an aggregate key's Z and a
+// pairing value); a secret-derived value must not be inverted with it.
+
+// out = a - b mod 2^384, and the borrow (1 iff a < b): one PTX
+// sub.cc/subc.cc chain on the card, sub_words under g++.  out may be a or
+// b.
+FP384_FN uint32_t sub_chain(const uint32_t a[kWords], const uint32_t b[kWords],
+                            uint32_t out[kWords]) {
+#if defined(__CUDA_ARCH__)
+  uint32_t borrow;
+  FP384_CHAIN("sub.cc.u32", out[0], a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < kWords; ++j) {
+    FP384_CHAIN("subc.cc.u32", out[j], a[j], b[j]);
+  }
+  FP384_CHAIN("subc.u32", borrow, 0u, 0u);  // all ones iff a < b
+  return borrow & 1u;
+#else
+  return sub_words(a, b, out);
+#endif
+}
+
+// out = a + b mod 2^384 (the carry out falls away), as sub_chain.
+FP384_FN void add_chain(const uint32_t a[kWords], const uint32_t b[kWords],
+                        uint32_t out[kWords]) {
+#if defined(__CUDA_ARCH__)
+  FP384_CHAIN("add.cc.u32", out[0], a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < kWords; ++j) {
+    FP384_CHAIN("addc.cc.u32", out[j], a[j], b[j]);
+  }
+#else
+  add_words(a, b, out);
+#endif
+}
+
+// x = (x - y) mod p for canonical x, y: where x - y borrowed, adding p
+// lands in [0, p).
+FP384_FN void sub_mod(uint32_t x[kWords], const uint32_t y[kWords]) {
+  constexpr uint32_t p[kWords] = {HARMONY_P_WORDS};
+  const uint32_t mask = 0u - sub_chain(x, y, x);
+  uint32_t q[kWords];
   FP384_UNROLL
-  for (int j = 0; j < kWords; ++j) acc[j] = a[j];
-  FP384_ROLLED
-  for (int bit = top - 1; bit >= 0; --bit) {
-    mont_mul(acc, acc, sq);
-    if (e[bit / 32] >> (bit % 32) & 1u) {
-      mont_mul(sq, a, acc);
-    } else {
-      FP384_UNROLL
-      for (int j = 0; j < kWords; ++j) acc[j] = sq[j];
-    }
+  for (int j = 0; j < kWords; ++j) q[j] = p[j] & mask;
+  add_chain(x, q, x);
+}
+
+FP384_FN int ctz(uint32_t w) {  // w != 0
+#if defined(__CUDA_ARCH__)
+  return __ffs(w) - 1;
+#else
+  return __builtin_ctz(w);
+#endif
+}
+
+// v = v / 2^k for 1 <= k <= 32, the words above v's top being 0.
+FP384_FN void shift_down(uint32_t v[kWords], int k) {
+  FP384_UNROLL
+  for (int j = 0; j < kWords; ++j) {
+    const uint64_t hi = j + 1 < kWords ? v[j + 1] : 0u;
+    v[j] = static_cast<uint32_t>((hi << 32 | v[j]) >> k);
+  }
+}
+
+// x = x 2^-k mod p for canonical x and 1 <= k <= 32: m = x (-p^-1) mod
+// 2^k makes x + m p divisible by 2^k (a k-bit step of Montgomery's
+// reduction), and (x + m p) / 2^k < p (1 + 2^k) / 2^k < 2p, so one
+// conditional subtraction makes it canonical.
+FP384_FN void div_pow2(uint32_t x[kWords], int k) {
+  constexpr uint32_t p[kWords] = {HARMONY_P_WORDS};
+  const uint32_t m = x[0] * kPInv & (k == 32 ? ~0u : (1u << k) - 1u);
+  uint32_t t[kWords];
+  uint64_t c = 0;
+  FP384_UNROLL
+  for (int j = 0; j < kWords; ++j) {
+    c += static_cast<uint64_t>(x[j]) + static_cast<uint64_t>(m) * p[j];
+    t[j] = static_cast<uint32_t>(c);
+    c >>= 32;
   }
   FP384_UNROLL
-  for (int j = 0; j < kWords; ++j) out[j] = acc[j];
+  for (int j = 0; j < kWords; ++j) {
+    const uint64_t hi = j + 1 < kWords ? t[j + 1] : c;
+    t[j] = static_cast<uint32_t>((hi << 32 | t[j]) >> k);
+  }
+  uint32_t d[kWords];
+  const uint32_t borrow = sub_chain(t, p, d);
+  FP384_UNROLL
+  for (int j = 0; j < kWords; ++j) x[j] = borrow ? t[j] : d[j];
+}
+
+// v odd, keeping x a = v (mod p): divide v by its factors of 2 and x by
+// as many.  v != 0.
+FP384_FN void strip_twos(uint32_t v[kWords], uint32_t x[kWords]) {
+  FP384_ROLLED
+  while (v[0] == 0) {
+    shift_down(v, 32);
+    div_pow2(x, 32);
+  }
+  const int k = ctz(v[0]);
+  if (k) {
+    shift_down(v, k);
+    div_pow2(x, k);
+  }
+}
+
+// a^-1 in the Montgomery domain (the inverse of a R is a^-1 R) for
+// canonical a, with inv(0) = 0.  Binary extended Euclid on the plain
+// value A = a R: u = A and v = p, with coefficients x = 1 and y = 0 kept
+// so that x A = u and y A = v (mod p).  Both stay odd after their factors of 2
+// are stripped; each step subtracts the smaller from the larger (and its
+// coefficient from the other's, mod p) and strips the difference's
+// factors of 2, dividing the coefficient by as many (div_pow2).  The gcd
+// is 1, so u and v meet at 1, and then x = A^-1 = a^-1 R^-1: one
+// Montgomery product by R^3 gives a^-1 R.  For BLS12-381's p: 268
+// subtractions on average over random inputs (at most about 300), each a
+// 12-word subtraction, a modular subtraction and a shift by about 2 bits.
+// The inverse is unique, so the limbs are those of the plain Fermat chain
+// (ops/fp.py inv_reference).
+FP384_FN void inv(const uint32_t a[kWords], uint32_t out[kWords]) {
+  constexpr uint32_t p[kWords] = {HARMONY_P_WORDS};
+  constexpr uint32_t r3[kWords] = {HARMONY_R3_WORDS};
+  uint32_t u[kWords], v[kWords], x[kWords], y[kWords], d[kWords];
+  uint32_t any = 0;
+  FP384_UNROLL
+  for (int j = 0; j < kWords; ++j) {
+    u[j] = a[j];
+    v[j] = p[j];
+    x[j] = j == 0;
+    y[j] = 0;
+    any |= a[j];
+  }
+  if (!any) {
+    FP384_UNROLL
+    for (int j = 0; j < kWords; ++j) out[j] = 0;
+    return;
+  }
+  strip_twos(u, x);
+  FP384_ROLLED
+  for (;;) {
+    if (!sub_chain(u, v, d)) {  // u >= v
+      uint32_t nonzero = 0;
+      FP384_UNROLL
+      for (int j = 0; j < kWords; ++j) nonzero |= d[j];
+      if (!nonzero) break;  // u = v = 1
+      FP384_UNROLL
+      for (int j = 0; j < kWords; ++j) u[j] = d[j];
+      sub_mod(x, y);
+      strip_twos(u, x);
+    } else {
+      sub_chain(v, u, v);
+      sub_mod(y, x);
+      strip_twos(v, y);
+    }
+  }
+  mont_mul(x, r3, out);
 }
 
 #if defined(__CUDACC__)

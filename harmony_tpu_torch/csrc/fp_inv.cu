@@ -1,28 +1,32 @@
 // Batched inversion over the BLS12-381 base field, for Hopper (sm_90a).
-// One thread computes one a^-1 = a^(p - 2) mod p in the Montgomery domain,
-// the whole Fermat chain in one launch (inv(0) = 0).
+// One thread computes one a^-1 in the Montgomery domain by a binary
+// extended GCD (fp384.cuh inv, with inv(0) = 0), in one launch.
 //
 // Replaces no TPU kernel.  The JAX package's harmony_tpu/ops/fp.py inv is
 // pow_fixed, a scan over the bits of p - 2 around the Pallas multiply,
 // which XLA runs inside its jitted programs.  Run eagerly in PyTorch it
-// was 610 one-row mont_mul launches in a row, and a quorum check makes
-// two inversions (the Fp12 inverse of the final exponentiation and the
-// affine form of the aggregate key): 65% of its mont_mul launches.
+// was 610 one-row mont_mul launches in a row.  A quorum check inverts
+// once here (the Fp12 inverse of the final exponentiation); the affine
+// form of its aggregate key inverts inside g1_masked_sum.cu with the
+// same device function.
 //
-// Design.  The path inverts one to 64 rows, and each inversion is a chain
-// of 608 dependent products (fp384.cuh inv: 380 squarings and 228
-// products, on 32-bit words), so a thread takes a row and keeps the chain
-// in registers; nothing leaves the thread between the load and the store.
+// Design.  The path inverts one to 64 rows, each a dependent chain, so a
+// thread takes a row and keeps it in registers.  The GCD's chain is about
+// 270 steps of 12-word subtractions and shifts (PTX carry chains), not
+// Fermat's 608 Montgomery products; it is variable-time, which suits the
+// public values the verify path inverts.  Rows of a warp take different
+// branches, so many rows cost more per row than one.
 //
 // Same boundary format as the other Fp kernels: rows of 32 little-endian
 // 12-bit limbs in int32, canonical (< p) in and out.
 //
-// What bounds it on an H100 SXM (3.35 TB/s HBM3; ~16.75e12 int32 IMAD/s,
+// What bounds it on an H100 SXM (3.35 TB/s HBM3; ~16.75e12 int32 ops/s,
 // half the 67 TFLOP/s fp32 FMA rate):
 //   bytes: 256 B per row (read 128 B, write 128 B);
-//   operations: 608 Montgomery products of 576 IMAD: 350,208 IMAD per row.
-// At one row both bounds are nanoseconds; the cost is one thread's
-// dependent chain of 608 products.
+//   operations: per step of the GCD about 100 word operations (the
+//   subtractions, the shift and the division of the coefficient by
+//   2^k), and one Montgomery product of 576 IMAD at the end.
+// At one row both bounds are nanoseconds; the cost is one thread's chain.
 
 #include <cstdint>
 

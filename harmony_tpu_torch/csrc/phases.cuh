@@ -132,13 +132,9 @@ constexpr int block_threads() {
 // fp384.cuh's add, sub and neg, the same canonical results: under g++
 // those functions; on the card each 12-word carry or borrow chain is one
 // run of PTX add.cc/addc.cc (sub.cc/subc.cc) instructions, which carry in
-// the condition code where fp384.cuh's 64-bit sums carry through shifts.
-// fp12_mul.cu, fp_addsub.cu, mont_mul.cu and fp_inv.cu keep fp384.cuh's.
-
-#if defined(__CUDA_ARCH__)
-#define PHASES_CHAIN(op, d, a, b) \
-  asm volatile(op " %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
-#endif
+// the condition code (FP384_CHAIN) where fp384.cuh's 64-bit sums carry
+// through shifts.  The G1 sum (g1.cuh) uses these too; fp12_mul.cu,
+// fp_addsub.cu and mont_mul.cu keep fp384.cuh's.
 
 // (a + b) mod p for canonical a, b.
 FP384_FN void add(const uint32_t a[kWords], const uint32_t b[kWords],
@@ -146,17 +142,17 @@ FP384_FN void add(const uint32_t a[kWords], const uint32_t b[kWords],
 #if defined(__CUDA_ARCH__)
   constexpr uint32_t p[kWords] = {HARMONY_P_WORDS};
   uint32_t t[kWords], d[kWords], borrow;
-  PHASES_CHAIN("add.cc.u32", t[0], a[0], b[0]);
+  FP384_CHAIN("add.cc.u32", t[0], a[0], b[0]);
 #pragma unroll
   for (int j = 1; j < kWords; ++j) {
-    PHASES_CHAIN("addc.cc.u32", t[j], a[j], b[j]);
+    FP384_CHAIN("addc.cc.u32", t[j], a[j], b[j]);
   }
-  PHASES_CHAIN("sub.cc.u32", d[0], t[0], p[0]);
+  FP384_CHAIN("sub.cc.u32", d[0], t[0], p[0]);
 #pragma unroll
   for (int j = 1; j < kWords; ++j) {
-    PHASES_CHAIN("subc.cc.u32", d[j], t[j], p[j]);
+    FP384_CHAIN("subc.cc.u32", d[j], t[j], p[j]);
   }
-  PHASES_CHAIN("subc.u32", borrow, 0u, 0u);  // all ones iff a + b < p
+  FP384_CHAIN("subc.u32", borrow, 0u, 0u);  // all ones iff a + b < p
 #pragma unroll
   for (int j = 0; j < kWords; ++j) out[j] = borrow ? t[j] : d[j];
 #else
@@ -170,16 +166,16 @@ FP384_FN void sub(const uint32_t a[kWords], const uint32_t b[kWords],
 #if defined(__CUDA_ARCH__)
   constexpr uint32_t p[kWords] = {HARMONY_P_WORDS};
   uint32_t d[kWords], borrow;
-  PHASES_CHAIN("sub.cc.u32", d[0], a[0], b[0]);
+  FP384_CHAIN("sub.cc.u32", d[0], a[0], b[0]);
 #pragma unroll
   for (int j = 1; j < kWords; ++j) {
-    PHASES_CHAIN("subc.cc.u32", d[j], a[j], b[j]);
+    FP384_CHAIN("subc.cc.u32", d[j], a[j], b[j]);
   }
-  PHASES_CHAIN("subc.u32", borrow, 0u, 0u);  // all ones iff a < b
-  PHASES_CHAIN("add.cc.u32", out[0], d[0], p[0] & borrow);
+  FP384_CHAIN("subc.u32", borrow, 0u, 0u);  // all ones iff a < b
+  FP384_CHAIN("add.cc.u32", out[0], d[0], p[0] & borrow);
 #pragma unroll
   for (int j = 1; j < kWords; ++j) {
-    PHASES_CHAIN("addc.cc.u32", out[j], d[j], p[j] & borrow);
+    FP384_CHAIN("addc.cc.u32", out[j], d[j], p[j] & borrow);
   }
 #else
   fp384::sub(a, b, out);

@@ -8,10 +8,10 @@ use, from the sources in the checkout, into ``harmony_tpu_torch/_build/``
 or the constants change: the library's name carries their hash.  A failed
 build or launch raises; nothing falls back to a plain version.
 
-The modulus, the Fermat exponent p - 2, the Montgomery form of 1 and the
-Miller loop's schedule of |x| reach the kernels through a header
-generated here from ``ops/_constants.py`` and ``ops/schedule.py`` and
-pre-included
+The modulus, R^3 mod p (which takes the inversion's plain inverse back
+into the Montgomery domain), the Montgomery form of 1 and the Miller
+loop's schedule of |x| reach the kernels through a header generated here
+from ``ops/_constants.py`` and ``ops/schedule.py`` and pre-included
 (``params_header``); not through ``-D`` flags, because nvcc splits option
 values at commas.
 """
@@ -35,9 +35,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "mont_mul.cu", CSRC / "fp_addsub.cu", CSRC / "fp12_mul.cu",
            CSRC / "fp12_cyclo_sqr.cu", CSRC / "miller_loop.cu",
-           CSRC / "fp_inv.cu")
+           CSRC / "fp_inv.cu", CSRC / "g1_masked_sum.cu")
 HEADERS = (CSRC / "fp384.cuh", CSRC / "fp384_split.cuh", CSRC / "fp12.cuh",
-           CSRC / "phases.cuh", CSRC / "cyclo.cuh", CSRC / "miller.cuh")
+           CSRC / "phases.cuh", CSRC / "cyclo.cuh", CSRC / "miller.cuh",
+           CSRC / "g1.cuh")
 BUILD_DIR = _PKG / "_build"
 
 
@@ -46,11 +47,11 @@ def _words(x: int) -> tuple:
     return tuple((x >> (32 * i)) & 0xFFFFFFFF for i in range(12))
 
 
-# p, p - 2 and 2^384 mod p (1 in the Montgomery domain) as words, and
-# -p^-1 mod 2^32
+# p, 2^384 mod p (1 in the Montgomery domain) and 2^1152 mod p (R^3) as
+# words, and -p^-1 mod 2^32
 P_WORDS = _words(C.P_INT)
-P_MINUS_2_WORDS = _words(C.P_INT - 2)
 ONE_MONT_WORDS = _words((1 << 384) % C.P_INT)
+R3_WORDS = _words((1 << 1152) % C.P_INT)
 P_INV32 = -pow(C.P_INT, -1, 1 << 32) % (1 << 32)
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -60,12 +61,13 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _COMPILE_FLAGS = ["-Xptxas", "-v"]
 
 # What the kernels take: rows of limbs (one Fp element), lanes of 12 such
-# rows (one Fp12 element, ops/__init__.py), and the affine points of G1
-# and of the G2 twist
+# rows (one Fp12 element, ops/__init__.py), the affine points of G1 and of
+# the G2 twist, and the Jacobian points of G1
 FP = (N_LIMBS,)
 FP12 = (2, 3, 2, N_LIMBS)
 G1_AFFINE = (2, N_LIMBS)
 G2_AFFINE = (2, 2, N_LIMBS)
+G1_JACOBIAN = (3, N_LIMBS)
 
 
 def _signature(n_ptrs, *extra):
@@ -84,7 +86,9 @@ _ENTRY_POINTS = {"harmony_mont_mul": _signature(3),
                  "harmony_fp12_mul": _signature(3),
                  "harmony_fp12_cyclo_sqr": _signature(2, ctypes.c_int32),
                  "harmony_miller_loop": _signature(3),
-                 "harmony_fp_inv": _signature(2)}
+                 "harmony_fp_inv": _signature(2),
+                 "harmony_g1_masked_sum": _signature(
+                     3, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32)}
 
 _lib = None
 _lock = threading.Lock()
@@ -102,7 +106,7 @@ def params_header() -> str:
     n_dbl, do_add = X_SCHED  # the Miller loop's schedule of |x|
     return (f"#define HARMONY_P_WORDS {words(P_WORDS)}\n"
             f"#define HARMONY_P_INV32 0x{P_INV32:08x}u\n"
-            f"#define HARMONY_P_MINUS_2_WORDS {words(P_MINUS_2_WORDS)}\n"
+            f"#define HARMONY_R3_WORDS {words(R3_WORDS)}\n"
             f"#define HARMONY_ONE_MONT_WORDS {words(ONE_MONT_WORDS)}\n"
             f"#define HARMONY_MILLER_DBL {', '.join(map(str, n_dbl))}\n"
             f"#define HARMONY_MILLER_ADD {', '.join(map(str, do_add))}\n")

@@ -52,10 +52,7 @@ def agg_verify(pk_affs, bitmap, h_aff, agg_sig_aff):
     h_aff / agg_sig_aff: single affine points (2, 2, 32).
     Returns a 0-dim bool tensor.
     """
-    jac = _affine_to_jacobian_g1(pk_affs)
-    agg_pk = CV.masked_sum(jac, bitmap, CV.FP_OPS)
-    ax, ay = CV.to_affine(agg_pk, CV.FP_OPS)
-    pk_aff = torch.stack([ax, ay])[None]  # (1, 2, 32)
+    pk_aff = CV.masked_sum_to_affine(pk_affs, bitmap)[None]  # (1, 2, 32)
     return verify(pk_aff, h_aff[None], agg_sig_aff[None])[0]
 
 
@@ -71,27 +68,16 @@ def agg_verify_batch(pk_affs, bitmaps, h_affs, agg_sig_affs):
     All B masked sums run as one tree reduction over an (N, B) stack
     (the JAX package's vmap, written out), then one batched verify.
     """
-    jac = _affine_to_jacobian_g1(pk_affs)  # (N, 3, 32)
-    bitmaps = torch.as_tensor(bitmaps, device=jac.device)
-    agg = CV.masked_sum(jac[:, None], bitmaps.T, CV.FP_OPS)  # (B, 3, 32)
-    ax, ay = CV.to_affine(agg, CV.FP_OPS)  # (B, 32) each
-    pk_aff = torch.stack([ax, ay], dim=-2)  # (B, 2, 32)
+    bitmaps = torch.as_tensor(bitmaps, device=pk_affs.device)
+    # (B, 2, 32)
+    pk_aff = CV.masked_sum_to_affine(pk_affs[:, None], bitmaps.T)
     return verify(pk_aff, h_affs, agg_sig_affs)
 
 
 @torch.inference_mode()
 def aggregate_pubkeys(pk_affs, bitmap):
     """Mask.AggregatePublic analog: bitmap-masked G1 sum (Jacobian out)."""
-    return CV.masked_sum(_affine_to_jacobian_g1(pk_affs), bitmap, CV.FP_OPS)
-
-
-def _affine_to_jacobian_g1(aff):
-    x = aff[..., 0, :]
-    y = aff[..., 1, :]
-    finite = ~(fp.is_zero(x) & fp.is_zero(y))
-    one = fp.on_device(fp.ONE_MONT, x.device).expand(x.shape)
-    z = torch.where(finite[..., None], one, torch.zeros_like(one))
-    return torch.stack([x, y, z], dim=-2)
+    return CV.masked_sum(pk_affs, bitmap, CV.FP_OPS)
 
 
 def _affine_to_jacobian_g2(aff):

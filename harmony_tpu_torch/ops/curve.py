@@ -10,11 +10,18 @@ Design, as in the JAX package:
   calls per double, 6 per add).
 - Generic over the coordinate field via a small op table; G1 and G2 share
   all the code.
+- The masked sum over G1 (``FP_OPS``) dispatches on its tensors' device:
+  a CUDA tensor launches the hand-written kernel of
+  ``kernels/g1_masked_sum.py`` (the select, padding, tree and, in
+  ``masked_sum_to_affine``, the affine form, in one launch) or raises; a
+  CPU tensor runs the plain ``masked_sum_reference`` (and ``to_affine``).
+  Over G2 the plain body runs everywhere.
 """
 
 import numpy as np
 import torch
 
+from ..kernels import g1_masked_sum as K_G1
 from . import _constants as C
 from . import fp
 from . import towers as T
@@ -185,12 +192,47 @@ def to_affine(pt, ops):
 def masked_sum(points, mask, ops):
     """Sum of points[i] where mask[i] == 1, via log-depth tree reduction.
 
-    One batched reduction over the whole committee instead of serial
-    adds per set bit.  ``points`` has the batch axis FIRST:
-    (N, ..., 3, <field>).  ``mask`` is (N,) or, for B sums over one
-    committee at once, (N, B) with points (N, 1, 3, <field>) — the batch
-    axis that the JAX package gets from vmap, written out.
+    ``points`` has the batch axis FIRST: (N, ..., 3, <field>); over G1 they
+    may also be affine, (N, ..., 2, 32) with (0, 0) for infinity (the
+    resident key table).  ``mask`` is (N,) or, for B sums over one
+    committee at once, (N, B) with points (N, 1, 3 or 2, <field>).  Over
+    G1, a tensor off the CPU goes to the kernel's wrapper, which launches
+    it (the sum alone, no affine form) or raises; everything else runs
+    ``masked_sum_reference``.
     """
+    if ops is FP_OPS:
+        if not points.is_cpu:
+            return K_G1.g1_masked_sum(
+                points, torch.as_tensor(mask, device=points.device),
+                affine=False)[0]
+        if points.shape[-2] == 2:
+            points = affine_to_jacobian_g1(points)
+    return masked_sum_reference(points, mask, ops)
+
+
+def masked_sum_to_affine(points, mask):
+    """``to_affine(masked_sum(points, mask, FP_OPS))`` over G1, stacked as
+    (..., 2, 32), infinity as (0, 0).  ``points`` are Jacobian (..., 3, 32)
+    or affine (..., 2, 32) with (0, 0) for infinity, shaped as
+    ``masked_sum`` takes them.  One kernel launch for a tensor off the
+    CPU; ``masked_sum_to_affine_reference`` for a CPU tensor."""
+    if not points.is_cpu:
+        return K_G1.g1_masked_sum(
+            points, torch.as_tensor(mask, device=points.device))[1]
+    return masked_sum_to_affine_reference(points, mask)
+
+
+def masked_sum_to_affine_reference(points, mask):
+    """The plain version of ``masked_sum_to_affine``."""
+    if points.shape[-2] == 2:
+        points = affine_to_jacobian_g1(points)
+    ax, ay = to_affine(masked_sum_reference(points, mask, FP_OPS), FP_OPS)
+    return torch.stack([ax, ay], dim=-2)
+
+
+def masked_sum_reference(points, mask, ops):
+    """The plain ``masked_sum``: the JAX package's body, with the (N, B)
+    mask form that the JAX package gets from vmap written out."""
     n = points.shape[0]
     mask = torch.as_tensor(mask, device=points.device)
     shape = tuple(mask.shape)
@@ -212,6 +254,17 @@ def masked_sum(points, mask, ops):
         pts = add(pts[:half], pts[half:size], ops)
         size = half
     return pts[0]
+
+
+def affine_to_jacobian_g1(aff):
+    """Affine G1 points (..., 2, 32) as Jacobian (..., 3, 32): Z = 1, and
+    (0, 0) (infinity) as (0, 0, 0)."""
+    x = aff[..., 0, :]
+    y = aff[..., 1, :]
+    finite = ~(fp.is_zero(x) & fp.is_zero(y))
+    one = fp.on_device(fp.ONE_MONT, x.device).expand(x.shape)
+    z = torch.where(finite[..., None], one, torch.zeros_like(one))
+    return torch.stack([x, y, z], dim=-2)
 
 
 # --- generators ------------------------------------------------------------

@@ -237,9 +237,9 @@ def pow_fixed(a, exponent_bits):
 
 
 def inv(a):
-    """Modular inverse via Fermat, a^(p-2), with inv(0) = 0 (callers
-    guard): one kernel launch for a CUDA tensor (the whole chain), the
-    plain ``inv_reference`` for a CPU tensor."""
+    """Modular inverse a^-1 = a^(p-2), with inv(0) = 0 (callers guard):
+    one kernel launch for a CUDA tensor (a binary extended GCD), the plain
+    ``inv_reference`` (Fermat's chain) for a CPU tensor."""
     if a.is_cpu:
         return inv_reference(a)
     return K_INV.inv(a)

@@ -219,6 +219,21 @@ def test_fp_inv_kernel_refuses_cpu_tensors_and_wrong_dtypes():
     assert KI.LAUNCHES == 0
 
 
+def test_generated_header_carries_r_cubed():
+    """The GCD inversion leaves the kernels with A^-1 for A = a R and
+    returns a^-1 R by one Montgomery product by the header's R^3 mod p."""
+    from harmony_tpu_torch.kernels import _build
+
+    line = _build.params_header().split("HARMONY_R3_WORDS", 1)[1]
+    words = [int(w, 16) for w in line.split("\n", 1)[0].replace(
+        "u", "").split(",")]
+    assert sum(w << (32 * i) for i, w in enumerate(words)) == R ** 3 % P
+    a = 0x1234567 * R % P
+    plain_inverse = pow(a, -1, P)  # what the GCD leaves
+    assert plain_inverse * (R ** 3 % P) * pow(R, -1, P) % P == \
+        pow(0x1234567, -1, P) * R % P
+
+
 def test_is_zero_and_select_match_jax():
     a = _limbs([0, 1, P - 1, 0])
     b = _limbs([5, 6, 7, 8])

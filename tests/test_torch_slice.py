@@ -28,6 +28,7 @@ from harmony_tpu_torch.kernels import fp12_cyclo_sqr as KC
 from harmony_tpu_torch.kernels import fp12_mul as KM
 from harmony_tpu_torch.kernels import fp_addsub as KA
 from harmony_tpu_torch.kernels import fp_inv as KI
+from harmony_tpu_torch.kernels import g1_masked_sum as KG
 from harmony_tpu_torch.kernels import miller_loop as KML
 from harmony_tpu_torch.kernels import mont_mul as K
 from harmony_tpu_torch.ref.hash_to_curve import hash_to_g2 as t_hash_to_g2
@@ -102,7 +103,7 @@ def test_batch_counts_one_chunk_and_no_kernel_launch(port_verdicts):
     assert TD.COUNTERS["batch_verify"] == before["batch_verify"] + 1
     # CPU tensors never reach the CUDA kernels
     assert (K.LAUNCHES, KA.LAUNCHES, KM.LAUNCHES, KC.LAUNCHES, KML.LAUNCHES,
-            KI.LAUNCHES) == (0,) * 6
+            KI.LAUNCHES, KG.LAUNCHES) == (0,) * 7
 
 
 def test_hash_to_g2_equals_jax_package():

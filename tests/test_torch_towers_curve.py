@@ -20,6 +20,8 @@ from harmony_tpu.ref import fields as RF
 from harmony_tpu.ref.params import P, R_ORDER
 from harmony_tpu_torch.kernels import fp12_cyclo_sqr as KC
 from harmony_tpu_torch.kernels import fp12_mul as KM
+from harmony_tpu_torch.kernels import g1_masked_sum as KG
+from harmony_tpu_torch.ops import bls as TB
 from harmony_tpu_torch.ops import curve as TCV
 from harmony_tpu_torch.ops import interop as TI
 from harmony_tpu_torch.ops import towers as TT
@@ -226,6 +228,97 @@ def test_masked_sum_matches_jax():
           JCV.masked_sum(j, jnp.asarray(mask), JCV.FP_OPS))
 
 
+# Two keys whose sum takes the add's special paths, at the 2-key shape
+# above (no new JAX compile): a key twice (the doubling) and a key with
+# its negative (infinity).
+_PAIRS = {"duplicate": (G1_REF[0], G1_REF[0]),
+          "opposite": (G1_REF[0], RC.g1.neg(G1_REF[0]))}
+
+
+@pytest.mark.parametrize("pair", sorted(_PAIRS))
+def test_masked_sum_matches_jax_on_special_pairs(pair):
+    x, y = _PAIRS[pair]
+    t, j = _both(np.stack([JI.g1_affine_to_jacobian_arr(x),
+                           JI.g1_affine_to_jacobian_arr(y)]))
+    out = TCV.masked_sum(t, torch.tensor([1, 1]), TCV.FP_OPS)
+    _same(out, JCV.masked_sum(j, jnp.asarray([1, 1]), JCV.FP_OPS))
+    assert TI.arr_to_g1_affine(out) == RC.g1.add(x, y)
+
+
+def test_cpu_masked_sums_take_the_plain_versions_and_launch_nothing(
+        monkeypatch):
+    pts, mask = torch.from_numpy(G1_PTS), torch.tensor([1, 0, 1, 1])
+    want = TCV.masked_sum_reference(pts, mask, TCV.FP_OPS)
+    ax, ay = TCV.to_affine(want, TCV.FP_OPS)
+    calls = []
+    for name in ("masked_sum_reference", "masked_sum_to_affine_reference"):
+        real = getattr(TCV, name)
+        monkeypatch.setattr(TCV, name, lambda *a, real=real, name=name:
+                            calls.append(name) or real(*a))
+    _same(TCV.masked_sum(pts, mask, TCV.FP_OPS), want.numpy())
+    _same(TCV.masked_sum_to_affine(pts, mask),
+          torch.stack([ax, ay]).numpy())
+    assert calls == ["masked_sum_reference", "masked_sum_to_affine_reference",
+                     "masked_sum_reference"]
+    assert KG.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("entry", ["masked_sum", "masked_sum_to_affine",
+                                   "agg_verify", "agg_verify_batch",
+                                   "aggregate_pubkeys"])
+def test_g1_sums_off_the_cpu_go_to_the_kernel_and_never_fall_back(
+        entry, monkeypatch):
+    """Tensors that are not on the CPU reach the kernel's wrapper, which
+    launches or raises: here (no card) it raises, and no plain version is
+    called."""
+    calls = []
+    for name in ("masked_sum_reference", "masked_sum_to_affine_reference",
+                 "to_affine", "affine_to_jacobian_g1"):
+        monkeypatch.setattr(TCV, name, lambda *a, name=name:
+                            calls.append(name))
+    meta = {"device": "meta", "dtype": torch.int32}
+    keys = torch.empty(8, 2, 32, **meta)
+    g2 = torch.empty(2, 2, 32, **meta)
+    run = {
+        "masked_sum": lambda: TCV.masked_sum(
+            torch.empty(8, 3, 32, **meta), [1] * 8, TCV.FP_OPS),
+        "masked_sum_to_affine": lambda: TCV.masked_sum_to_affine(
+            keys, torch.ones(8, **meta)),
+        "agg_verify": lambda: TB.agg_verify(keys, torch.ones(8, **meta), g2,
+                                            g2),
+        "agg_verify_batch": lambda: TB.agg_verify_batch(
+            keys, torch.ones(3, 8, **meta), g2.expand(3, 2, 2, 32),
+            g2.expand(3, 2, 2, 32)),
+        "aggregate_pubkeys": lambda: TB.aggregate_pubkeys(
+            keys, torch.ones(8, **meta)),
+    }[entry]
+    with pytest.raises(ValueError, match="CUDA"):
+        run()
+    assert calls == []
+    assert KG.LAUNCHES == 0
+
+
+def test_g1_masked_sum_kernel_refuses_cpu_tensors_dtypes_and_shapes():
+    pts, mask = torch.from_numpy(G1_PTS), torch.tensor([1, 0, 1, 1])
+    meta = torch.empty(4, 3, 32, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        KG.g1_masked_sum(pts, mask)
+    with pytest.raises(TypeError, match="int32"):
+        KG.g1_masked_sum(pts.long(), mask)
+    for points, m in ((meta, mask.to("meta")[:3]),  # N disagrees
+                      (meta[..., :16], mask.to("meta")),  # not 32 limbs
+                      (meta[:, :1], mask.to("meta")),  # one coordinate
+                      (meta, mask.to("meta")[:, None]),  # (N, B) on (N, C)
+                      (meta[:, None].expand(4, 2, 3, 32),
+                       torch.ones(4, 2, device="meta")),  # a table per lane
+                      (torch.empty(1025, 3, 32, dtype=torch.int32,
+                                   device="meta"),
+                       torch.ones(1025, device="meta"))):  # past 1024
+        with pytest.raises(ValueError, match=r"\(N, C, 32\)"):
+            KG.g1_masked_sum(points, m)
+    assert KG.LAUNCHES == 0
+
+
 @pytest.mark.parametrize("mask", [[1, 0, 1, 1], [0, 0, 0, 0], [1, 1, 1, 1]])
 def test_masked_sum_matches_bigint(mask):
     out = TCV.masked_sum(torch.from_numpy(G1_PTS), torch.tensor(mask),
@@ -246,6 +339,21 @@ def test_batched_masked_sum_equals_one_sum_per_bitmap():
     out = TCV.masked_sum(pts[:, None], bitmaps.T, TCV.FP_OPS)
     for b in range(4):
         _same(out[b], TCV.masked_sum(pts, bitmaps[b], TCV.FP_OPS).numpy())
+
+
+def test_masked_sum_takes_affine_g1_points():
+    """Over G1 the affine table (pad rows (0, 0)) sums as its Jacobian
+    form, on its own and through aggregate_pubkeys."""
+    pts = torch.from_numpy(G1_PTS)
+    ax, ay = TCV.to_affine(pts, TCV.FP_OPS)
+    aff = torch.cat([torch.stack([ax, ay], dim=-2),
+                     torch.zeros(1, 2, 32, dtype=torch.int32)])  # a pad row
+    mask = torch.tensor([1, 1, 0, 1, 1])
+    want = TCV.masked_sum(TCV.affine_to_jacobian_g1(aff), mask, TCV.FP_OPS)
+    _same(TCV.masked_sum(aff, mask, TCV.FP_OPS), want.numpy())
+    _same(TB.aggregate_pubkeys(aff, mask), want.numpy())
+    assert TI.arr_to_g1_affine(want) == RC.g1.add(
+        RC.g1.add(G1_REF[0], G1_REF[1]), G1_REF[3])
 
 
 def test_to_affine_matches_bigint():
