@@ -5,14 +5,14 @@
 
 Run from the root of a checkout on a machine with one CUDA card.  It
 
-1. prints the card's name and power limit and builds the seven CUDA
+1. prints the card's name and power limit and builds the eight CUDA
    kernels (harmony_tpu_torch/csrc/mont_mul.cu, fp_addsub.cu,
-   fp12_mul.cu, fp12_cyclo_sqr.cu, miller_loop.cu, fp_inv.cu and
-   g1_masked_sum.cu, one library) from the checkout, with the build's
-   time, each kernel's
-   registers, stack frame, spills and shared memory (ptxas) and SASS
-   instructions (cuobjdump); miller_loop and fp12_cyclo_sqr must have
-   no stack frame and no spills;
+   fp12_mul.cu, fp12_cyclo_sqr.cu, miller_loop.cu, fp_inv.cu,
+   g1_masked_sum.cu and final_exp.cu, one library) from the checkout,
+   with the build's time, each kernel's registers, stack frame, spills
+   and shared memory (ptxas) and SASS instructions (cuobjdump); the
+   kernels on plans of phases (fp12_mul, fp12_cyclo_sqr, miller_loop,
+   final_exp) must have no stack frame and no spills;
 2. holds each kernel against its plain PyTorch version on the card, bit
    for bit, at the shapes the verify path gives it and on edge cases;
    times both with the wrapper, and each kernel alone on the device
@@ -22,9 +22,10 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    certificate and its forgeries, a replay batch of 64 headers, 8
    single checks and one check from payload bytes, each verdict as
    constructed; it shows that every entry point went through the kernels
-   of its path (all seven for the quorum checks; all but the masked G1
-   sum for the single checks), holds one quorum check to its launch
-   limits, and counts the other tensor ops each call issues;
+   of its path and no other (g1_masked_sum, miller_loop, fp12_mul and
+   final_exp for the quorum checks; all but the masked G1 sum for the
+   single checks), holds one quorum check to its launch counts, and
+   counts the other tensor ops each call issues;
 4. holds a pairing product on the card against the CPU plain path, and
    profiles one Fp12 product, one quorum check, one replay batch and 8
    single checks (wall time against device time, split by kernel);
@@ -58,7 +59,8 @@ INT32_OPS_PER_S = 16.75e12
 # products, 2 IMAD each.  add, sub: read two rows, write one; neg: read
 # one, write one; 12 words each of add-with-carry, subtract-with-borrow
 # and select.  Per Fp12 lane (12 rows): fp12_mul reads a and b and writes
-# the product, and makes 54 Montgomery products; fp12_cyclo_sqr reads and
+# the product, and makes 54 Montgomery products (the plain version's and
+# the kernel's, one round of the plan); fp12_cyclo_sqr reads and
 # writes one lane whatever the count n of squarings, and makes 18
 # Montgomery products per squaring (its operations are per squaring).
 # Per lane, miller_loop reads P (2 rows) and Q (4 rows) and writes f (12
@@ -83,9 +85,16 @@ INT32_OPS_PER_S = 16.75e12
 # equal or opposite points needs only the 8, 4 or 0 products that find
 # them so, and the doubling 7 (6 where Z = 1).  Then the inversion of Z
 # and 4 products for the affine form, unless the sum is infinity or still
-# has Z = 1.
+# has Z = 1.  Per lane, final_exp reads f and writes the result, and makes
+# the plain version's products (FINAL_EXP_PRODUCTS: 315 cyclotomic
+# squarings of 18, 34 Fp12 products of 54 and one square of 36, the
+# inverse's 112 and three Frobenius maps of 18; the kernel makes 7,726,
+# squaring by the 54-product plan), and the steps of the binary GCD on
+# the Fp value its inverse reaches, counted from each run's data
+# (final_exp_work), and one Montgomery product after them.
 MONT_IMAD = 2 * 288
 MILLER_PRODUCTS = 63 * (36 + 54 + 34) + 5 * (54 + 44)
+FINAL_EXP_PRODUCTS = 315 * 18 + 34 * 54 + 36 + 112 + 3 * 18
 INV_STEP_OPS = 12 + 36 + 12 + 60
 # by the number of operands with Z = 1: 0, 1, 2
 G1_ADD_PRODUCTS = (16, 11, 6)
@@ -103,10 +112,12 @@ WORK = {"mont_mul": (3 * 128, MONT_IMAD), "add": (3 * 128, 3 * 12),
 # time (4 x 128 x 64 rows) and whose additions take one (128 x 64).
 FP12_ROWS = 54 * 64
 LARGEST_ROWS = {"mont_mul": 4 * 128 * 64, "fp_addsub": 128 * 64}
-# Fp12 lanes at the path's shapes: a quorum check's final exponentiation
-# (1) and Miller loop (2 pairings), and the 64-header batch's Miller loop
-# (2 x 64)
-FP12_LANES = {"1": 1, "2": 2, "2x64": 128}
+# Fp12 lanes at the path's shapes: fp12_tree_reduce's one product of a
+# quorum check (1) and of the 64-header batch (64); and 128, the shape
+# the kernel was timed at before its redesign
+FP12_LANES = {"1": 1, "64": 64, "128": 128}
+# lane counts fp12_mul is also held at: one block per lane
+FP12_EDGE_LANES = (1, 2, 3, 64, 128, 129)
 # the runs of squarings of |x|'s and |x - 1|'s schedules
 CYCLO_RUNS = (1, 2, 3, 9, 16, 32)
 # Miller-loop lanes at the path's shapes: a quorum check's two pairings,
@@ -125,12 +136,28 @@ INV_TIMED_ROWS = (1, 64)
 G1_BUCKETS = (8, 256, 1024)
 G1_LANES = (1, 3, 64, 256)
 G1_TIMED_LANES = (1, 64)
-# what one quorum check may launch, now that the Miller loop, the Fp12
-# inversion and the masked G1 sum with its affine form are one launch each
-QC_LAUNCHES = {"miller_loop": (1, 1), "fp_inv": (1, 1),
-               "g1_masked_sum": (1, 1), "fp_addsub": (0, 110),
-               "mont_mul": (0, 15), "fp12_mul": (0, 40),
-               "fp12_cyclo_sqr": (0, 40)}
+# the final exponentiation: the lane counts held at (each a prefix of one
+# plain run), and those timed (a quorum check's 1, the single checks' 8,
+# the replay batch's 64, the widest batch bucket's 256)
+FINAL_EXP_LANES = (1, 3, 8, 64, 65, 256)
+FINAL_EXP_TIMED_LANES = (1, 8, 64, 256)
+# what one quorum check launches, now that the masked G1 sum with its
+# affine form, the Miller loop, the product of the two pairs' Miller
+# values and the final exponentiation are one launch each
+QC_LAUNCHES = {"miller_loop": (1, 1), "fp_inv": (0, 0),
+               "g1_masked_sum": (1, 1), "fp_addsub": (0, 0),
+               "mont_mul": (0, 0), "fp12_mul": (1, 1),
+               "fp12_cyclo_sqr": (0, 0), "final_exp": (1, 1)}
+# the kernels each entry point launches, and no other
+ENTRY_KERNELS = {
+    "agg_verify_hashed_on_device": ("g1_masked_sum", "miller_loop",
+                                    "fp12_mul", "final_exp"),
+    "agg_verify_batch_on_device": ("g1_masked_sum", "miller_loop",
+                                   "fp12_mul", "final_exp"),
+    "verify_many_on_device": ("miller_loop", "fp12_mul", "final_exp"),
+    "verify_on_device": ("miller_loop", "fp12_mul", "final_exp"),
+}
+PATH_KERNELS = ENTRY_KERNELS["agg_verify_hashed_on_device"]
 
 # the functions of the path to which count_ops assigns launches and ops,
 # the innermost on the stack winning
@@ -189,19 +216,19 @@ def canonical_limbs(rng, shape):
 
 
 KERNELS = ("mont_mul", "fp_addsub", "fp12_mul", "fp12_cyclo_sqr",
-           "miller_loop", "fp_inv", "g1_masked_sum")
+           "miller_loop", "fp_inv", "g1_masked_sum", "final_exp")
 
 
 def wrappers():
     """Each kernel's wrapper module, by kernel name; each counts its
     launches in ``LAUNCHES``."""
-    from harmony_tpu_torch.kernels import fp12_cyclo_sqr, fp12_mul, \
-        fp_addsub, fp_inv, g1_masked_sum, miller_loop, mont_mul
+    from harmony_tpu_torch.kernels import final_exp, fp12_cyclo_sqr, \
+        fp12_mul, fp_addsub, fp_inv, g1_masked_sum, miller_loop, mont_mul
 
     return {"mont_mul": mont_mul, "fp_addsub": fp_addsub,
             "fp12_mul": fp12_mul, "fp12_cyclo_sqr": fp12_cyclo_sqr,
             "miller_loop": miller_loop, "fp_inv": fp_inv,
-            "g1_masked_sum": g1_masked_sum}
+            "g1_masked_sum": g1_masked_sum, "final_exp": final_exp}
 
 
 def launches():
@@ -434,6 +461,40 @@ def g1_work(points, mask, sums):
     return roofline(nbytes, ops)
 
 
+def final_exp_gcd_value(limbs):
+    """The Fp value that final_exp's inverse hands to the binary GCD for
+    one lane's f (limbs (2, 3, 2, 32)): d0^2 + d1^2, with d the Fp2 norm
+    of n = a0^2 - v a1^2 (csrc/final_exp.cuh), as the plain integer x R
+    mod p of its Montgomery limbs."""
+    from harmony_tpu_torch.ops import interop as I
+    from harmony_tpu_torch.ref import fields as RF
+    from harmony_tpu_torch.ref.params import P
+
+    mul, sub, xi = RF.fp2_mul, RF.fp2_sub, RF.fp2_mul_xi
+    a0, a1 = I.arr_to_fp12(limbs)
+    n0, n1, n2 = RF.fp6_sub(RF.fp6_mul(a0, a0),
+                            RF.fp6_mul_v(RF.fp6_mul(a1, a1)))
+    t0 = sub(mul(n0, n0), xi(mul(n1, n2)))
+    t1 = sub(xi(mul(n2, n2)), mul(n0, n1))
+    t2 = sub(mul(n1, n1), mul(n0, n2))
+    d = RF.fp2_add(mul(n0, t0), xi(RF.fp2_add(mul(n2, t1), mul(n1, t2))))
+    return (d[0] ** 2 + d[1] ** 2) * (1 << 384) % P
+
+
+def final_exp_work(f):
+    """(ms, what bounds it) of final_exp on these lanes f (..., 2, 3, 2,
+    32): read f and write the result once; the plain version's products
+    per lane, and the GCD's steps on each lane's Fp value (none for a
+    zero lane) with the Montgomery product after them."""
+    lanes = f.reshape(-1, 2, 3, 2, 32).cpu()
+    ops = len(lanes) * FINAL_EXP_PRODUCTS * MONT_IMAD
+    for lane in lanes:
+        x = final_exp_gcd_value(lane)
+        if x:
+            ops += gcd_steps(x) * INV_STEP_OPS + MONT_IMAD
+    return roofline(len(lanes) * 2 * 12 * 128, ops)
+
+
 def _compare(name, got, want, stats):
     import torch
 
@@ -650,6 +711,8 @@ def plain_fp():
               (T, "fp12_sqr", T.fp12_sqr_reference),
               (T, "fp12_cyclo_sqr_n", cyclo_sqr_n),
               (PR, "miller_loop", PR.miller_loop_reference),
+              (PR, "final_exponentiation",
+               PR.final_exponentiation_reference),
               (CV, "masked_sum", CV.masked_sum_reference),
               (CV, "masked_sum_to_affine",
                CV.masked_sum_to_affine_reference)]
@@ -690,7 +753,8 @@ def fp12_mul_phase(seed, stats):
     """The fp12_mul kernel (products, and squares on (a, a)) against the
     plain composition on the card, bit for bit, at the path's lane counts,
     the stacked Miller shape, a broadcast operand, strided views and edge
-    values; two lanes also against the host bigint."""
+    values, and at 1, 2, 3, 64, 128 and 129 lanes (one block per lane);
+    two lanes also against the host bigint."""
     import numpy as np
     import torch
 
@@ -715,15 +779,15 @@ def fp12_mul_phase(seed, stats):
         _compare(name, got, want, stats)
         return got
 
-    for lanes in (1, 2, 64, 128):
+    for lanes in FP12_EDGE_LANES:
         a, b = fp12_limbs(rng, lanes), fp12_limbs(rng, lanes)
         got = compare(f"fp12_mul, {lanes} lanes", a, b)
         compare(f"fp12_sqr, {lanes} lanes", a)
-    for i in (0, 127):
+    for i in (0, 128):
         x, y, z = (I.arr_to_fp12(t[i].cpu()) for t in (a, b, got))
         check(z == RF.fp12_mul(x, y),
               f"fp12_mul lane {i}: kernel differs from the host bigint")
-    log("fp12_mul kernel == host bigint on 2 lanes of 128")
+    log("fp12_mul kernel == host bigint on 2 lanes of 129")
     compare("fp12_mul, the stacked Miller shape (2, 64)",
             fp12_limbs(rng, 2, 64), fp12_limbs(rng, 2, 64))
     compare("fp12_mul, one value broadcast against 64 lanes",
@@ -1163,6 +1227,108 @@ def loop_timing_phase(seed, qc_keys, qc_mask, g1_stats):
     return timings
 
 
+def final_exp_inputs(seed):
+    """256 lanes of f on the card, the interesting ones first: the Miller
+    values of 8 pairing products of two pairs as verify_many builds them
+    (5 of real pairs, then 3 pad lanes of infinity (0, 0), whose Miller
+    values leave the cyclotomic subgroup), made by the Miller-loop and
+    Fp12 kernels; a zero lane; one; and random values."""
+    import numpy as np
+    import torch
+
+    from harmony_tpu_torch.ops import interop as I
+    from harmony_tpu_torch.ops import pairing as PR
+    from harmony_tpu_torch.ops import towers as T
+    from harmony_tpu_torch.ref.curve import G1_GEN, G2_GEN, g1, g2
+    from harmony_tpu_torch.ref.params import R_ORDER
+
+    rng = np.random.default_rng(seed + 12)
+    prng = random.Random(seed + 12)
+    ps = torch.zeros(2, 8, 2, 32, dtype=torch.int32)
+    qs = torch.zeros(2, 8, 2, 2, 32, dtype=torch.int32)
+    for k in range(2):
+        for b in range(5):
+            ps[k, b] = I.g1_affine_to_arr(
+                g1.mul(G1_GEN, prng.randrange(1, R_ORDER)))
+            qs[k, b] = I.g2_affine_to_arr(
+                g2.mul(G2_GEN, prng.randrange(1, R_ORDER)))
+    with torch.inference_mode():
+        miller = PR.fp12_tree_reduce(PR.miller_loop(ps.cuda(), qs.cuda()))
+    return torch.cat([miller, T.fp12_zero((1,), "cuda"),
+                      T.fp12_one((1,), "cuda"),
+                      fp12_limbs(rng, 256 - 10)])
+
+
+def final_exp_phase(seed, stats):
+    """The final_exp kernel against final_exponentiation_reference (plain
+    PyTorch on the card, no hand kernel launched), bit for bit, at 1, 3,
+    8, 64, 65 and 256 lanes, each a prefix of one plain run over the 256
+    lanes of final_exp_inputs (Miller values with pad lanes, 0, 1, random
+    values); the 256 lanes also against the composition over the other
+    kernels (the path before this kernel).  Returns the inputs."""
+    import torch
+
+    from harmony_tpu_torch.kernels import final_exp as KF
+    from harmony_tpu_torch.ops import pairing as PR
+
+    f = final_exp_inputs(seed)
+    with torch.inference_mode(), plain_fp():
+        want = PR.final_exponentiation_reference(f)
+    for lanes in FINAL_EXP_LANES:
+        _compare(f"final_exp, {lanes} lanes, against plain PyTorch",
+                 KF.final_exp(f[:lanes]), want[:lanes], stats)
+    with torch.inference_mode():
+        _compare("final_exp, 256 lanes, against the composition over the "
+                 "other kernels", KF.final_exp(f),
+                 PR.final_exponentiation_reference(f), stats)
+    check(not want[8].any() and bool(PR.is_one(want[9])),
+          "the final exponentiation of 0 is not 0, or of 1 not 1")
+    return f
+
+
+def final_exp_timing_phase(f):
+    """final_exp at the path's lane counts, on prefixes of the inputs of
+    final_exp_phase: wrapper-inclusive ms by CUDA events, the kernel's own
+    device time by torch.profiler, the ms of the composition over the
+    other kernels that it replaced, the bound from these inputs (the GCD's
+    steps counted from each lane's data), the wrapper's host cost per
+    call; and at 1 lane the plain version's ms (plain PyTorch on the
+    card, some seconds a call)."""
+    from harmony_tpu_torch.kernels import final_exp as KF
+    from harmony_tpu_torch.ops import pairing as PR
+
+    def plain(a):
+        def run():
+            with plain_fp():
+                return PR.final_exponentiation_reference(a)
+        return run
+
+    timings = {}
+    for lanes in FINAL_EXP_TIMED_LANES:
+        a = f[:lanes]
+        kernel = lambda a=a: KF.final_exp(a)  # noqa: E731
+        bound_ms, bound_by = final_exp_work(a)
+        t = timings[f"{lanes} lanes"] = {
+            "lanes": lanes,
+            "ms": cuda_ms(kernel, 20),
+            "device_ms": 1e-3 * device_us(kernel, "final_exp", 10),
+            "composed_ms": cuda_ms(
+                lambda a=a: PR.final_exponentiation_reference(a), 2),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "host_us_per_call": host_us(kernel, 200),
+        }
+        if lanes == 1:
+            t["plain_ms"] = cuda_ms(plain(a), 1)
+        log(f"final_exp at {lanes} lanes: {t['ms']:.6f} ms with the "
+            f"wrapper, {t['device_ms']:.6f} ms on the device, "
+            + (f"plain {t['plain_ms']:.6f} ms, " if "plain_ms" in t else "")
+            + f"composed over the other kernels {t['composed_ms']:.6f} ms, "
+            f"bound {bound_ms:.6f} ms ({bound_by}), host "
+            f"{t['host_us_per_call']:.3f} us per call")
+    return {"final_exp": timings}
+
+
 def build_committee(rng):
     """200 keys cheaply: sk_i = sk_0 + i*delta, pk_i = pk_(i-1) + delta*G1."""
     from harmony_tpu_torch.ref.curve import G1_GEN, g1
@@ -1378,10 +1544,12 @@ def slice_phase(seed):
     log("verify_on_device: valid signature True")
 
     for name, (ms, made, ops, wait) in results.items():
-        # the single checks sum no mask
         for kernel, n in made.items():
-            if kernel != "g1_masked_sum" or name.startswith("agg_"):
+            if kernel in ENTRY_KERNELS[name]:
                 check(n > 0, f"{name} never launched the {kernel} kernel")
+            else:
+                check(n == 0, f"{name} launched the {kernel} kernel, which "
+                      f"is not on its path")
         line = (f"{name}: {ms:.3f} ms per call ({wait:.3f} ms of it waiting "
                 f"for the card at the end), " + ", ".join(
                     f"{n} {kernel}" for kernel, n in made.items())
@@ -1400,8 +1568,8 @@ def slice_phase(seed):
                 + f") + {c['ops']} other ops"
                 for src, c in sorted(sources[name].items(),
                                      key=lambda kv: -kv[1].total())))
-    # what fusing the towers, the Miller loop, the inversion and the masked
-    # sum must have left of one check's launches
+    # what fusing the masked sum, the Miller loop and the final
+    # exponentiation must have left of one check's launches
     made = results["agg_verify_hashed_on_device"][1]
     for kernel, (least, most) in QC_LAUNCHES.items():
         check(least <= made[kernel] <= most,
@@ -1476,8 +1644,9 @@ def profile_phase(seed, entry_calls):
                    if r.device_type == DeviceType.CUDA) / reps
         rest_all_rows = sum(r.self_device_time_total for r in others) / reps
         device = rest + sum(split.values())
-        if "composition" not in name:
-            check(split["fp12_mul"] > 0, f"{name}: no fp12_mul kernel seen")
+        for k in KERNELS:
+            check(split[k] > 0 or not made[k],
+                  f"{name}: no device time seen for {k}")
         out[name] = {"wall_us": wall_us, "device_us": device,
                      "busy": device / wall_us, "launches": made,
                      "kernel_us": split, "rest_us": rest,
@@ -1523,7 +1692,8 @@ def main(argv=None):
     for kernel, line in ptxas.items():
         log(f"ptxas, {kernel}: {line}; {sass[kernel]} SASS instructions")
     # the phase plans keep every index into a register array constant
-    for kernel in ("miller_loop", "fp12_cyclo_sqr"):
+    for kernel in ("fp12_mul", "fp12_cyclo_sqr", "miller_loop",
+                   "final_exp"):
         check(all(f"0 bytes {what}" in ptxas[kernel] for what in
                   ("stack frame", "spill stores", "spill loads")),
               f"{kernel} has a stack frame or spills: {ptxas[kernel]}")
@@ -1536,18 +1706,21 @@ def main(argv=None):
     miller_phase(args.seed, stats["miller_loop"])
     inv_phase(args.seed, stats["fp_inv"])
     qc_keys, qc_mask = g1_sum_phase(args.seed, stats["g1_masked_sum"])
+    final_exp_in = final_exp_phase(args.seed, stats["final_exp"])
     timings = timing_phase(args.seed)
     timings.update(tower_timing_phase(args.seed))
     timings.update(loop_timing_phase(args.seed, qc_keys, qc_mask,
                                      stats["g1_masked_sum"]))
+    timings.update(final_exp_timing_phase(final_exp_in))
 
     # the main path: launch counts start from zero here
     for module in wrappers().values():
         module.LAUNCHES = 0
     _, entry_calls = slice_phase(args.seed)
     path = launches()
-    for name, n in path.items():
-        check(n > 0, f"the main path never launched the {name} kernel")
+    for name in PATH_KERNELS:
+        check(path[name] > 0, f"the main path never launched the {name} "
+              f"kernel")
     log("main path: " + ", ".join(f"{n} {name}" for name, n in path.items())
         + " launches")
     gt_phase(args.seed)
@@ -1582,8 +1755,8 @@ def main(argv=None):
               "add", "2^16", "65536 rows, add", ("add", "sub", "neg")),
         entry("fp12_mul", "harmony_tpu_torch/csrc/fp12_mul.cu",
               "none: fuses harmony_tpu/ops/towers.py:212 (jnp, fused by XLA)",
-              "fp12_mul", "2x64 lanes",
-              "128 lanes, the stacked (2, 64) Miller shape", ("fp12_mul",)),
+              "fp12_mul", "1 lanes",
+              "1 lane, a quorum check's fp12_tree_reduce", ("fp12_mul",)),
         entry("fp12_cyclo_sqr", "harmony_tpu_torch/csrc/fp12_cyclo_sqr.cu",
               "none: fuses harmony_tpu/ops/towers.py:255 (jnp, fused by XLA)",
               "fp12_cyclo_sqr", "1 lanes, n = 32",
@@ -1602,6 +1775,12 @@ def main(argv=None):
               ":220-231 to_affine (jnp, fused by XLA)", "g1_masked_sum",
               "1 lanes", "bucket 256, 1 lane: a quorum check's 150 of 200 "
               "keys", ("g1_masked_sum",)),
+        entry("final_exp", "harmony_tpu_torch/csrc/final_exp.cu",
+              "none: fuses harmony_tpu/ops/pairing.py:218-246 "
+              "final_exponentiation (jnp and scans, fused by XLA)",
+              "final_exp", "1 lanes",
+              "1 lane, a quorum check's final exponentiation",
+              ("final_exp",)),
     ]
     log(f"chip_smoke took {time.perf_counter() - started:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -35,7 +35,7 @@
 
 #include <cstdint>
 
-#include "phases.cuh"
+#include "fp12_plans.cuh"
 
 #if !defined(HARMONY_MILLER_DBL) || !defined(HARMONY_MILLER_ADD) || \
     !defined(HARMONY_ONE_MONT_WORDS)
@@ -46,6 +46,8 @@ namespace miller {
 
 using fp12::ld;
 using fp12::st;
+using fp12_plans::times_v;
+using fp12_plans::TimesVKinds;
 using fp384::kWords;
 
 // --- the lane's scratch area ------------------------------------------------
@@ -69,11 +71,7 @@ constexpr int kSqV = 74;   // 36
 constexpr int kSqW = 110;  // 24
 constexpr int kSqU = 134;  // 12
 // f times the line: a0 + a1, b0 + b1, and the intermediates
-constexpr int kMl1 = 146;  // 12
-constexpr int kMlS = 158;  // 36
-constexpr int kMlV = 194;  // 54
-constexpr int kMlW = 248;  // 36
-constexpr int kMlU = 284;  // 18
+constexpr int kMl1 = 146;  // 156
 constexpr int kT = 302;    // 54: a step's intermediates
 constexpr int kScratch = kT + 54;  // 356 elements, 17,088 B
 
@@ -83,120 +81,6 @@ constexpr int kLineV2 = kB + 4;
 constexpr int kLineW = kB + 6;
 constexpr int kLineWV = kB + 8;
 
-// --- products of Fp6 values -------------------------------------------------
-//
-// N6 Fp6 products by Karatsuba-3 over Fp2 and Karatsuba over Fp, as
-// ops/towers.py fp6_mul: operand (side, f6) has its six elements from
-// Operand::base(side, f6).  Fp2 operand g = 0..5 is x0, x1, x2, x1 + x2,
-// x0 + x1, x0 + x2; Fp operand h = 0, 1, 2 of it is its two components and
-// their sum; product (f6, g, h) goes to kV + 18 f6 + 3 g + h.
-//
-//   phase       tasks  writes
-//   Sums        12 N6  kS: the Fp2 sums g = 3, 4, 5 [side][f6][g - 3][c]
-//   Products    18 N6  kV: the Fp products
-//   Fp2Combine  12 N6  kW: the Fp2 products [f6][g][c], by component
-//   Fp6Combine  6 N6   kU: the Fp6 products [f6][element], by Fp2 index
-
-template <int N6, class Operand, int kS, int kV, int kW, int kU>
-struct Fp6Products {
-  static FP384_FN int fp2(int side, int f6, int g) {
-    return g < 3 ? Operand::base(side, f6) + 2 * g
-                 : kS + ((side * N6 + f6) * 3 + g - 3) * 2;
-  }
-
-  struct Sums : phases::Linear<12 * N6> {
-    static FP384_FN void task(int k, uint32_t* s) {
-      const int c = k % 2, q = k / 2 % 3, so = k / 6;
-      const int base = Operand::base(so / N6, so % N6);
-      const int i = q == 0 ? 1 : 0, j = q == 1 ? 1 : 2;  // (1,2) (0,1) (0,2)
-      uint32_t r[kWords];
-      phases::ld_add(s, base + 2 * i + c, base + 2 * j + c, r);
-      st(s, kS + k, r);
-    }
-  };
-
-  struct Products : phases::Products<18 * N6> {
-    static FP384_FN int operands(int k, const uint32_t* s, uint32_t x[kWords],
-                                 uint32_t y[kWords]) {
-      const int f6 = k / 18, g = k % 18 / 3, h = k % 3;
-      phases::kara(s, fp2(0, f6, g), h, x);
-      phases::kara(s, fp2(1, f6, g), h, y);
-      return kV + k;
-    }
-  };
-
-  // component C of each Fp2 product (f6, g) = k
-  template <int C>
-  struct Fp2CombineC : phases::Linear<6 * N6> {
-    static FP384_FN void task(int k, uint32_t* s) {
-      uint32_t r[kWords];
-      phases::combine(s, kV + 3 * k, C, r);
-      st(s, kW + 2 * k + C, r);
-    }
-  };
-  using Fp2Combine = phases::Beside<Fp2CombineC<0>, Fp2CombineC<1>>;
-
-  // Fp2 coefficient J of each Fp6 product, from its Fp2 products v_g at
-  // w + 2 g: c0 = v0 + xi (v12 - (v1 + v2)), c1 = (v01 - (v0 + v1)) + xi v2,
-  // c2 = (v02 - (v0 + v2)) + v1
-  template <int J>
-  struct Fp6CombineJ : phases::Linear<2 * N6> {
-    static FP384_FN void task(int k, uint32_t* s) {
-      const int f6 = k / 2, c = k % 2, w = kW + 12 * f6;
-      uint32_t t[kWords], z[kWords], r[kWords];
-      if (J == 0) {
-        uint32_t d0[kWords], d1[kWords];
-        phases::ld_add(s, w + 2, w + 4, t);
-        ld(s, w + 6, z);
-        phases::sub(z, t, d0);
-        phases::ld_add(s, w + 3, w + 5, t);
-        ld(s, w + 7, z);
-        phases::sub(z, t, d1);
-        phases::xi_part(d0, d1, c, t);
-        ld(s, w + c, z);
-        phases::add(z, t, r);
-      } else {
-        constexpr int kOther = J == 1 ? 1 : 2, kCross = J == 1 ? 4 : 5;
-        uint32_t d[kWords];
-        phases::ld_add(s, w + c, w + 2 * kOther + c, t);
-        ld(s, w + 2 * kCross + c, z);
-        phases::sub(z, t, d);
-        if (J == 1) {
-          phases::xi(s, w + 4, c, z);
-        } else {
-          ld(s, w + 2 + c, z);
-        }
-        phases::add(d, z, r);
-      }
-      st(s, kU + 6 * f6 + 2 * J + c, r);
-    }
-  };
-  using Fp6Combine =
-      phases::Beside<Fp6CombineJ<0>, Fp6CombineJ<1>, Fp6CombineJ<2>>;
-};
-
-// v (y0, y1, y2) = (xi y2, y0, y1): element e of v y, for y at e0.  The
-// phases that use it give e < 2 and e >= 2 warps of their own: the first
-// two are adds, the other four loads.
-FP384_FN void times_v(const uint32_t* s, int e0, int e, uint32_t out[kWords]) {
-  if (e < 2) {
-    phases::xi(s, e0 + 4, e, out);
-  } else {
-    ld(s, e0 + e - 2, out);
-  }
-}
-
-// Elements [E0, E1) of an Fp6 value, a kind of task of their own.
-template <class Task, int E0, int E1>
-struct Elements : phases::Linear<E1 - E0> {
-  static FP384_FN void task(int k, uint32_t* s) { Task::element(E0 + k, s); }
-};
-
-// The six element tasks of an Fp6 value that uses times_v, as two kinds.
-template <class Task>
-using TimesVKinds =
-    phases::Beside<Elements<Task, 0, 2>, Elements<Task, 2, 6>>;
-
 // --- f^2, the complex method (ops/towers.py fp12_sqr_reference) -------------
 //
 // (a0 + a1 w)^2 = ((a0 + a1)(a0 + v a1) - v0 - v v0) + 2 v0 w, v0 = a0 a1:
@@ -204,7 +88,8 @@ using TimesVKinds =
 //
 //   phase        tasks  writes
 //   SqPre        12     kSq1: a0 + a1, a0 + v a1
-//   Sq::Sums ... Fp6Combine, as above, into kSqS, kSqV, kSqW, kSqU
+//   Sq::Sums ... Fp6Combine, as fp12_plans.cuh Fp6Products, into kSqS,
+//                      kSqV, kSqW, kSqU
 //   SqPost       12     f: (cross - v0) - v v0, v0 + v0
 
 struct SqOperand {
@@ -212,7 +97,7 @@ struct SqOperand {
     return (f6 == 0 ? kF : kSq1) + 6 * side;
   }
 };
-using Sq = Fp6Products<2, SqOperand, kSqS, kSqV, kSqW, kSqU>;
+using Sq = fp12_plans::Fp6Products<2, SqOperand, kSqS, kSqV, kSqW, kSqU>;
 
 struct SqPreSum : phases::Linear<6> {  // a0 + a1
   static FP384_FN void task(int e, uint32_t* s) {
@@ -250,51 +135,14 @@ struct SqPost1 : phases::Linear<6> {  // v0 + v0
   }
 };
 
-// --- f times the line (ops/towers.py fp12_mul_reference) --------------------
+// --- f times the line (fp12_plans.cuh Fp12Product) -------------------------
 //
-// Karatsuba-2 over Fp6: a0 b0, a1 b1, (a0 + a1)(b0 + b1), 54 Fp products;
-// c0 = u0 + v u1, c1 = u2 - (u0 + u1).
-//
-//   phase        tasks  writes
-//   MlPre        12     kMl1: a0 + a1, b0 + b1
-//   Ml::Sums ... Fp6Combine, as above, into kMlS, kMlV, kMlW, kMlU
-//   MlPost       12     f
+// f = f b, the 54-product Karatsuba-2/3/2 product of fp12_plans.cuh, its
+// intermediates from kMl1 on; the doubling and the addition run its phases
+// beside their own.
 
-struct MlOperand {
-  static FP384_FN int base(int side, int f6) {
-    return f6 < 2 ? (side ? kB : kF) + 6 * f6 : kMl1 + 6 * side;
-  }
-};
-using Ml = Fp6Products<3, MlOperand, kMlS, kMlV, kMlW, kMlU>;
-
-struct MlPre : phases::Linear<12> {
-  static FP384_FN void task(int k, uint32_t* s) {
-    const int in = k < 6 ? kF : kB, e = k % 6;
-    uint32_t r[kWords];
-    phases::ld_add(s, in + e, in + 6 + e, r);
-    st(s, kMl1 + k, r);
-  }
-};
-
-struct MlPost0 {  // u0 + v u1
-  static FP384_FN void element(int e, uint32_t* s) {
-    uint32_t t[kWords], z[kWords], r[kWords];
-    times_v(s, kMlU + 6, e, t);
-    ld(s, kMlU + e, z);
-    phases::add(z, t, r);
-    st(s, kF + e, r);
-  }
-};
-
-struct MlPost1 : phases::Linear<6> {  // u2 - (u0 + u1)
-  static FP384_FN void task(int e, uint32_t* s) {
-    uint32_t t[kWords], z[kWords], r[kWords];
-    phases::ld_add(s, kMlU + e, kMlU + 6 + e, t);
-    ld(s, kMlU + 12 + e, z);
-    phases::sub(z, t, r);
-    st(s, kF + 6 + e, r);
-  }
-};
+using Ml = fp12_plans::Fp12Product<kF, kB, kF, kMl1>;
+static_assert(Ml::kEnd == kT, "f times the line ends where a step begins");
 
 // --- init: f = 1, T = Q, -xp, -3 xp, the line's zeros; and conj -------------
 //
@@ -803,12 +651,12 @@ using Double = phases::Plan<
     phases::Beside<Sq::Fp6Combine, DblZ3M1, DblX3, DblZ3, DblCw, DblYyp2>,
     phases::Beside<DblM0, DblY3p, DblCwv>,
     phases::Beside<TimesVKinds<SqPost0>, SqPost1, DblCv2, DblY3>,
-    MlPre,
+    Ml::Pre,
     Ml::Sums,
     Ml::Products,
     Ml::Fp2Combine,
     Ml::Fp6Combine,
-    phases::Beside<TimesVKinds<MlPost0>, MlPost1>>;
+    Ml::Post>;
 
 // An addition: the step, then f times the chord, whose products share a
 // round with the step's last and whose first combine shares Y3's phase.
@@ -821,12 +669,12 @@ using Add = phases::Plan<
     phases::Beside<AddDen, AddNumR, AddZ3>,
     phases::Beside<AddLine, AddKara, AddRsq>,
     phases::Beside<AddCw, AddX3>,
-    MlPre,
+    Ml::Pre,
     Ml::Sums,
     phases::Beside<Ml::Products, AddP7>,
     phases::Beside<Ml::Fp2Combine, AddL8>,
     Ml::Fp6Combine,
-    phases::Beside<TimesVKinds<MlPost0>, MlPost1>>;
+    Ml::Post>;
 
 using Start = phases::Plan<Init>;
 using Finish = phases::Plan<Conj>;

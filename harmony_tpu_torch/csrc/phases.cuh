@@ -1,7 +1,8 @@
 // Plans of phases, fixed at compile time, and the block that runs them on
-// the card: the frame of the Miller-loop and cyclotomic-squaring kernels
-// (miller.cuh, cyclo.cuh).  The host tests run the same plans with their
-// own runner (tests/test_torch_fp12_host.py, tests/test_torch_miller_host.py).
+// the card: the frame of the tower kernels (fp12_plans.cuh, cyclo.cuh,
+// miller.cuh, final_exp.cuh).  The host tests run the same plans with their
+// own runner (tests/test_torch_fp12_host.py, tests/test_torch_miller_host.py,
+// tests/test_torch_final_exp_host.py).
 //
 // A phase is a type with
 //   kTasks     the number of its tasks, which read only what earlier
@@ -133,8 +134,8 @@ constexpr int block_threads() {
 // those functions; on the card each 12-word carry or borrow chain is one
 // run of PTX add.cc/addc.cc (sub.cc/subc.cc) instructions, which carry in
 // the condition code (FP384_CHAIN) where fp384.cuh's 64-bit sums carry
-// through shifts.  The G1 sum (g1.cuh) uses these too; fp12_mul.cu,
-// fp_addsub.cu and mont_mul.cu keep fp384.cuh's.
+// through shifts.  The G1 sum (g1.cuh) uses these too; fp_addsub.cu and
+// mont_mul.cu keep fp384.cuh's.
 
 // (a + b) mod p for canonical a, b.
 FP384_FN void add(const uint32_t a[kWords], const uint32_t b[kWords],

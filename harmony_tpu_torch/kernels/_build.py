@@ -9,8 +9,9 @@ or the constants change: the library's name carries their hash.  A failed
 build or launch raises; nothing falls back to a plain version.
 
 The modulus, R^3 mod p (which takes the inversion's plain inverse back
-into the Montgomery domain), the Montgomery form of 1 and the Miller
-loop's schedule of |x| reach the kernels through a header generated here
+into the Montgomery domain), the Montgomery form of 1, the schedules of
+|x| (the Miller loop's and the final exponentiation's) and |x - 1|, and
+the Frobenius constants reach the kernels through a header generated here
 from ``ops/_constants.py`` and ``ops/schedule.py`` and pre-included
 (``params_header``); not through ``-D`` flags, because nvcc splits option
 values at commas.
@@ -28,17 +29,18 @@ from pathlib import Path
 import torch
 
 from ..ops import _constants as C
-from ..ops.limbs import N_LIMBS
-from ..ops.schedule import X_SCHED
+from ..ops.limbs import N_LIMBS, limbs_to_int
+from ..ops.schedule import X_SCHED, XM1_SCHED
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "mont_mul.cu", CSRC / "fp_addsub.cu", CSRC / "fp12_mul.cu",
            CSRC / "fp12_cyclo_sqr.cu", CSRC / "miller_loop.cu",
-           CSRC / "fp_inv.cu", CSRC / "g1_masked_sum.cu")
+           CSRC / "fp_inv.cu", CSRC / "g1_masked_sum.cu",
+           CSRC / "final_exp.cu")
 HEADERS = (CSRC / "fp384.cuh", CSRC / "fp384_split.cuh", CSRC / "fp12.cuh",
-           CSRC / "phases.cuh", CSRC / "cyclo.cuh", CSRC / "miller.cuh",
-           CSRC / "g1.cuh")
+           CSRC / "phases.cuh", CSRC / "fp12_plans.cuh", CSRC / "cyclo.cuh",
+           CSRC / "miller.cuh", CSRC / "final_exp.cuh", CSRC / "g1.cuh")
 BUILD_DIR = _PKG / "_build"
 
 
@@ -53,6 +55,10 @@ P_WORDS = _words(C.P_INT)
 ONE_MONT_WORDS = _words((1 << 384) % C.P_INT)
 R3_WORDS = _words((1 << 1152) % C.P_INT)
 P_INV32 = -pow(C.P_INT, -1, 1 << 32) % (1 << 32)
+# FROB_GAMMA[k - 1][m] (ops/_constants.py), k = 1..3, m = 0..5, as Fp2
+# pairs of words in that order
+FROB_WORDS = tuple(w for gammas in C.FROB_GAMMA for pair in gammas
+                   for limbs in pair for w in _words(limbs_to_int(limbs)))
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC"]
@@ -88,7 +94,8 @@ _ENTRY_POINTS = {"harmony_mont_mul": _signature(3),
                  "harmony_miller_loop": _signature(3),
                  "harmony_fp_inv": _signature(2),
                  "harmony_g1_masked_sum": _signature(
-                     3, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32)}
+                     3, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32),
+                 "harmony_final_exp": _signature(2)}
 
 _lib = None
 _lock = threading.Lock()
@@ -103,13 +110,20 @@ def params_header() -> str:
     def words(ws):
         return ", ".join(f"0x{w:08x}u" for w in ws)
 
-    n_dbl, do_add = X_SCHED  # the Miller loop's schedule of |x|
+    def ints(xs):
+        return ", ".join(map(str, xs))
+
+    n_dbl, do_add = X_SCHED  # |x|'s schedule: the Miller loop's
+    n_sqr, do_mul = XM1_SCHED
     return (f"#define HARMONY_P_WORDS {words(P_WORDS)}\n"
             f"#define HARMONY_P_INV32 0x{P_INV32:08x}u\n"
             f"#define HARMONY_R3_WORDS {words(R3_WORDS)}\n"
             f"#define HARMONY_ONE_MONT_WORDS {words(ONE_MONT_WORDS)}\n"
-            f"#define HARMONY_MILLER_DBL {', '.join(map(str, n_dbl))}\n"
-            f"#define HARMONY_MILLER_ADD {', '.join(map(str, do_add))}\n")
+            f"#define HARMONY_MILLER_DBL {ints(n_dbl)}\n"
+            f"#define HARMONY_MILLER_ADD {ints(do_add)}\n"
+            f"#define HARMONY_XM1_SQR {ints(n_sqr)}\n"
+            f"#define HARMONY_XM1_MUL {ints(do_mul)}\n"
+            f"#define HARMONY_FROB_WORDS {words(FROB_WORDS)}\n")
 
 
 def library_path() -> Path:

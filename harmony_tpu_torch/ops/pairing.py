@@ -17,8 +17,11 @@ ops/pairing.py, step for step:
 - Final exponentiation to the power 3 (p^12 - 1)/r: the CUBED pairing,
   as in the JAX package and its bigint reference.  Easy part by
   conjugate / inverse / Frobenius^2, hard part by the x-chain with
-  cyclotomic squarings, one run of squarings per call (the JAX
-  package's fori_loop inside its scan; on the card, one kernel launch).
+  cyclotomic squarings.  ``final_exponentiation`` dispatches as
+  ``miller_loop`` does: a CUDA tensor runs the whole of it in one kernel
+  launch (kernels/final_exp.py); a CPU tensor runs the plain
+  ``final_exponentiation_reference``, one run of squarings per call (the
+  JAX package's fori_loop inside its scan).
 
 Batching: points are batched over leading axes; products of pairings
 (the aggregate-verify shape) share one final exponentiation.
@@ -26,6 +29,7 @@ Batching: points are batched over leading axes; products of pairings
 
 import torch
 
+from ..kernels import final_exp as K_FINAL_EXP
 from ..kernels import miller_loop as K_MILLER
 from . import fp
 from . import towers as T
@@ -164,7 +168,17 @@ def _cyclo_pow_abs(a, sched):
 
 @torch.inference_mode()
 def final_exponentiation(f):
-    """f^(3 (p^12-1)/r): easy part exactly, hard part by the x-chain.
+    """f^(3 (p^12-1)/r): one kernel launch for a CUDA tensor, the plain
+    ``final_exponentiation_reference`` for a CPU tensor."""
+    if f.is_cpu:
+        return final_exponentiation_reference(f)
+    return K_FINAL_EXP.final_exp(f)
+
+
+@torch.inference_mode()
+def final_exponentiation_reference(f):
+    """The plain PyTorch f^(3 (p^12-1)/r) over the Fp and Fp12
+    dispatchers: easy part exactly, hard part by the x-chain.
 
     Hard part uses 3 lambda = (x-1)^2 (x+p)(x^2+p^2-1) + 3; the cubed
     pairing is the framework's canonical pairing.  Inversions after the

@@ -1,20 +1,21 @@
-"""The fused Fp12 kernels' arithmetic and phase plans, and the split
-Montgomery product, on the CPU.
+"""The fused Fp12 kernels' phase plans, and the split Montgomery product,
+on the CPU.
 
-``harmony_tpu_torch/csrc/fp12.cuh`` holds the Fp12 product that
-``fp12_mul.cu`` runs on the card, ``csrc/cyclo.cuh`` the cyclotomic
-squaring that ``fp12_cyclo_sqr.cu`` runs, both as phases of independent
-tasks, and ``csrc/fp384_split.cuh`` the Montgomery product split over a
-group of threads that the cyclotomic and Miller kernels use.  Outside
-nvcc they are plain C++, so here g++ compiles them through a small host
-harness, with the modulus header the kernel build generates, and ctypes
-loads the result.  The harness runs each phase's tasks in one of three
-orders: forward, in reverse, and isolated (every task sees the scratch
-area as the phase found it, and the harness fails on two tasks writing
-one word), so that a plan with a dependency inside a phase fails here
-before it reaches the card.  It runs the split product's threads step by
-step, with an array for the shuffles, forward or in reverse within each
-step.
+``harmony_tpu_torch/csrc/fp12_plans.cuh`` holds the Fp12 product that
+``fp12_mul.cu`` runs on the card (one block per lane, the Miller loop's f
+times the line), ``csrc/cyclo.cuh`` the cyclotomic squaring that
+``fp12_cyclo_sqr.cu`` runs, both as plans of phases of independent tasks
+(``csrc/phases.cuh``), and ``csrc/fp384_split.cuh`` the Montgomery
+product split over a group of threads that every plan's products use.
+Outside nvcc they are plain C++, so here g++ compiles them through a
+small host harness, with the modulus header the kernel build generates,
+and ctypes loads the result.  The harness runs each phase's tasks in one
+of three orders: forward, in reverse, and isolated (every task sees the
+scratch area as the phase found it, and the harness fails on two tasks
+writing one word), so that a plan with a dependency inside a phase fails
+here before it reaches the card.  It runs the split product's threads
+step by step, with an array for the shuffles, forward or in reverse
+within each step.
 
 The fused results must equal the port's plain versions
 (``ops/towers.py`` ``fp12_mul_reference``, ``fp12_sqr_reference``,
@@ -158,6 +159,7 @@ void poison(std::vector<uint32_t>& s) {
 
 _HOST_SRC = HOST_RUNNER + r"""
 #include "cyclo.cuh"
+#include "fp12_plans.cuh"
 
 namespace {
 
@@ -166,29 +168,26 @@ using host::poison;
 using host::store;
 constexpr int kWords = fp384::kWords;
 
+// fp12_mul.cu's lane: a at 0, b at 12, the product's intermediates from 24
+// on, the product at 0.
+using Mul = fp12_plans::Fp12Product<0, 12, 0, 24>;
+
 }  // namespace
 
 extern "C" int host_fp12_mul(const int32_t* a, const int32_t* b, int32_t* out,
                              int64_t lanes, int order) {
-  std::vector<uint32_t> s(fp12::kMulScratch * kWords);
+  std::vector<uint32_t> s(Mul::kEnd * kWords);
+  const host::Runner run{&s, order};
   const int64_t stride = fp12::kElems * fp384::kLimbs;
   for (int64_t lane = 0; lane < lanes; ++lane) {
     poison(s);
     for (int e = 0; e < fp12::kElems; ++e) {
-      load(a + lane * stride + e * fp384::kLimbs, s.data(), fp12::kMulA + e);
-      load(b + lane * stride + e * fp384::kLimbs, s.data(), fp12::kMulB + e);
+      load(a + lane * stride + e * fp384::kLimbs, s.data(), e);
+      load(b + lane * stride + e * fp384::kLimbs, s.data(), 12 + e);
     }
-    for (int phase = 0; phase < fp12::kMulPhases; ++phase) {
-      if (!host::run_tasks(s, fp12::mul_tasks(phase), order,
-                           [phase](int k, uint32_t* x) {
-                             fp12::mul_task(phase, k, x);
-                           })) {
-        return -1 - phase;
-      }
-    }
+    if (!run(Mul::Plan{})) return -1;
     for (int e = 0; e < fp12::kElems; ++e) {
-      store(s.data(), fp12::kMulOut + e,
-            out + lane * stride + e * fp384::kLimbs);
+      store(s.data(), e, out + lane * stride + e * fp384::kLimbs);
     }
   }
   return 0;
@@ -243,7 +242,7 @@ _ORDERS = {"forward": 0, "reverse": 1, "isolated": 2}
 def host_lib(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
-        pytest.skip("g++ is not installed: the host build of fp12.cuh needs "
+        pytest.skip("g++ is not installed: the host build of the plans needs "
                     "a C++17 compiler")
     tmp = tmp_path_factory.mktemp("fp12_host")
     header = tmp / "harmony_params.h"

@@ -1,5 +1,6 @@
 """The port stands alone: nothing under harmony_tpu_torch/ and nothing in
-chip_smoke.py imports JAX or the JAX package (harmony_tpu)."""
+chip_smoke.py or final_exp_parts.py imports JAX or the JAX package
+(harmony_tpu)."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 SOURCES = sorted((REPO / "harmony_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "final_exp_parts.py"]
 
 
 def _forbidden(module: str) -> bool:

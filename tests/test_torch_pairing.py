@@ -20,10 +20,13 @@ from harmony_tpu.ref import fields as RF
 from harmony_tpu.ref import pairing as RP
 from harmony_tpu.ref.params import R_ORDER
 from harmony_tpu_torch.kernels import _build as KB
+from harmony_tpu_torch.kernels import final_exp as KF
 from harmony_tpu_torch.kernels import miller_loop as KML
 from harmony_tpu_torch.ops import interop as TI
 from harmony_tpu_torch.ops import pairing as PR
+from harmony_tpu_torch.ops import _constants as C
 from harmony_tpu_torch.ops import schedule as S
+from harmony_tpu_torch.ops.limbs import limbs_to_int
 
 rng = random.Random(0xA7E)
 
@@ -141,3 +144,77 @@ def test_miller_loop_kernel_refuses_cpu_tensors_dtypes_and_shapes():
     with pytest.raises(ValueError, match=r"\(\.\.\., 2, 2, 32\)"):
         KML.miller_loop(p, q[..., 0, :])
     assert KML.LAUNCHES == 0
+
+
+def _header_defs():
+    return dict(line.split(" ", 2)[1:]
+                for line in KB.params_header().splitlines())
+
+
+def test_generated_header_carries_the_final_exponentiation_constants():
+    """The final exponentiation's kernel gets |x - 1|'s schedule from
+    ops/schedule.py and the Frobenius constants of ops/_constants.py,
+    FROB_GAMMA[k - 1][m] for k = 1..3 and m = 0..5 as Fp2 pairs of 12
+    little-endian 32-bit words, in that order."""
+    defs = _header_defs()
+    for name, want in (("HARMONY_XM1_SQR", S.XM1_SCHED[0]),
+                       ("HARMONY_XM1_MUL", S.XM1_SCHED[1])):
+        assert tuple(map(int, defs[name].split(", "))) == want
+    words = [int(w.rstrip("u"), 16)
+             for w in defs["HARMONY_FROB_WORDS"].split(", ")]
+    got = [sum(w << (32 * j) for j, w in enumerate(words[i:i + 12]))
+           for i in range(0, len(words), 12)]
+    assert got == [limbs_to_int(limbs) for gammas in C.FROB_GAMMA
+                   for pair in gammas for limbs in pair]
+    assert len(got) == 3 * 6 * 2
+
+
+def _stub_final_exp(monkeypatch):
+    """Replace the plain final exponentiation by a stub that records its
+    calls."""
+    calls = []
+    monkeypatch.setattr(PR, "final_exponentiation_reference",
+                        lambda f: calls.append(f) or "plain")
+    return calls
+
+
+def test_cpu_final_exp_takes_the_plain_version_and_launches_nothing(
+        monkeypatch):
+    calls = _stub_final_exp(monkeypatch)
+    f = torch.zeros(2, 2, 3, 2, 32, dtype=torch.int32)
+    assert PR.final_exponentiation(f) == "plain"
+    assert len(calls) == 1 and calls[0] is f
+    assert KF.LAUNCHES == 0
+
+
+def test_final_exp_off_the_cpu_goes_to_the_kernel_and_never_falls_back(
+        monkeypatch):
+    """Tensors that are not on the CPU reach the kernel's wrapper, which
+    launches or raises: here (no card) it raises, through
+    final_exponentiation, pairing and pairing_product, and the plain
+    version is never called."""
+    calls = _stub_final_exp(monkeypatch)
+    monkeypatch.setattr(PR, "miller_loop", lambda p, q: torch.empty(
+        (*q.shape[:-3], 2, 3, 2, 32), dtype=torch.int32, device="meta"))
+    f = torch.empty(2, 2, 3, 2, 32, dtype=torch.int32, device="meta")
+    # one pair: the product over pairs needs no Fp12 product first
+    p = torch.empty(1, 3, 2, 32, dtype=torch.int32, device="meta")
+    q = torch.empty(1, 3, 2, 2, 32, dtype=torch.int32, device="meta")
+    for call in (lambda: PR.final_exponentiation(f),
+                 lambda: PR.pairing(p[0], q[0]),
+                 lambda: PR.pairing_product(p, q)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert calls == []
+    assert KF.LAUNCHES == 0
+
+
+def test_final_exp_kernel_refuses_cpu_tensors_dtypes_and_shapes():
+    f = torch.zeros(2, 2, 3, 2, 32, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        KF.final_exp(f)
+    with pytest.raises(TypeError, match="int32"):
+        KF.final_exp(f.long())
+    with pytest.raises(ValueError, match=r"\(\.\.\., 2, 3, 2, 32\)"):
+        KF.final_exp(f[..., 0, :, :, :])
+    assert KF.LAUNCHES == 0

@@ -24,6 +24,7 @@ from harmony_tpu.ref.hash_to_curve import hash_to_g2 as j_hash_to_g2
 from harmony_tpu.ref.params import R_ORDER
 from harmony_tpu_torch import device as TD
 from harmony_tpu_torch.kernels import _build as KB
+from harmony_tpu_torch.kernels import final_exp as KF
 from harmony_tpu_torch.kernels import fp12_cyclo_sqr as KC
 from harmony_tpu_torch.kernels import fp12_mul as KM
 from harmony_tpu_torch.kernels import fp_addsub as KA
@@ -103,7 +104,7 @@ def test_batch_counts_one_chunk_and_no_kernel_launch(port_verdicts):
     assert TD.COUNTERS["batch_verify"] == before["batch_verify"] + 1
     # CPU tensors never reach the CUDA kernels
     assert (K.LAUNCHES, KA.LAUNCHES, KM.LAUNCHES, KC.LAUNCHES, KML.LAUNCHES,
-            KI.LAUNCHES, KG.LAUNCHES) == (0,) * 7
+            KI.LAUNCHES, KG.LAUNCHES, KF.LAUNCHES) == (0,) * 8
 
 
 def test_hash_to_g2_equals_jax_package():
