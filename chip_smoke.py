@@ -11,8 +11,9 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    g1_masked_sum.cu and final_exp.cu, one library) from the checkout,
    with the build's time, each kernel's registers, stack frame, spills
    and shared memory (ptxas) and SASS instructions (cuobjdump); the
-   kernels on plans of phases (fp12_mul, fp12_cyclo_sqr, miller_loop,
-   final_exp) must have no stack frame and no spills;
+   kernels on plans of phases or rounds (fp12_mul, fp12_cyclo_sqr,
+   miller_loop, g1_masked_sum, final_exp) must have no stack frame and no
+   spills;
 2. holds each kernel against its plain PyTorch version on the card, bit
    for bit, at the shapes the verify path gives it and on edge cases;
    times both with the wrapper, and each kernel alone on the device
@@ -21,7 +22,8 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    mainnet width (a 200-slot committee, bucket 256): one quorum
    certificate and its forgeries, a replay batch of 64 headers, 8
    single checks and one check from payload bytes, each verdict as
-   constructed; it shows that every entry point went through the kernels
+   constructed, each timed once (the first three also as the median of
+   25 more calls); it shows that every entry point went through the kernels
    of its path and no other (g1_masked_sum, miller_loop, fp12_mul and
    final_exp for the quorum checks; all but the masked G1 sum for the
    single checks), holds one quorum check to its launch counts, and
@@ -73,10 +75,12 @@ INT32_OPS_PER_S = 16.75e12
 # products are left out of the operations: a few per cent more.  fp_inv
 # and g1_masked_sum do work that depends on their inputs, counted from
 # each run's data (inv_work, g1_work): per row, fp_inv reads a and writes
-# its inverse; its binary GCD takes some 270 steps of INV_STEP_OPS word
-# operations (a 12-word subtraction; a modular subtraction, 36; a 12-word
-# shift; the coefficient's division by 2^k, 12 word products of 2 IMAD
-# and a shift, subtraction and select of 12 words each, 60), then one
+# its inverse; its batched binary GCD takes some 19 batches (inv_batches,
+# 26 at most) of INV_BATCH_OPS word operations (30 steps of about 20 on
+# the 62-bit approximations and the four coefficients; two exact linear
+# combinations of 13 limbs of 30 bits, about 8 a limb with 2 products of
+# 2 IMAD; two modular ones, about 14 a limb with the third product and
+# the reduction; about 120 to form the approximations), then one
 # Montgomery product.  Per lane, g1_masked_sum reads the points and the
 # mask and writes the sum and its affine form; its products are those of
 # the lane's tree on this data (g1_tree): an add with infinity needs none,
@@ -89,13 +93,13 @@ INT32_OPS_PER_S = 16.75e12
 # the plain version's products (FINAL_EXP_PRODUCTS: 315 cyclotomic
 # squarings of 18, 34 Fp12 products of 54 and one square of 36, the
 # inverse's 112 and three Frobenius maps of 18; the kernel makes 7,726,
-# squaring by the 54-product plan), and the steps of the binary GCD on
+# squaring by the 54-product plan), and the batches of the GCD on
 # the Fp value its inverse reaches, counted from each run's data
 # (final_exp_work), and one Montgomery product after them.
 MONT_IMAD = 2 * 288
 MILLER_PRODUCTS = 63 * (36 + 54 + 34) + 5 * (54 + 44)
 FINAL_EXP_PRODUCTS = 315 * 18 + 34 * 54 + 36 + 112 + 3 * 18
-INV_STEP_OPS = 12 + 36 + 12 + 60
+INV_BATCH_OPS = 30 * 20 + 2 * 13 * 8 + 2 * 13 * 14 + 120
 # by the number of operands with Z = 1: 0, 1, 2
 G1_ADD_PRODUCTS = (16, 11, 6)
 G1_MATCH_PRODUCTS = (8, 4, 0)
@@ -170,6 +174,8 @@ COMMITTEE = 200  # Harmony mainnet: 200 slots per shard (epoch >= 1673)
 QUORUM = 150
 REPLAY_DISTINCT, REPLAY_REPEAT = 16, 4
 SINGLE_CHECKS = 8
+# calls of each entry point whose median wall time the slice phase reports
+MEDIAN_CALLS = 25
 
 
 def log(msg):
@@ -356,35 +362,38 @@ def roofline(nbytes, ops):
         "bytes" if by_bytes >= by_ops else "operations")
 
 
-def gcd_steps(x):
-    """The steps of csrc/fp384.cuh inv's binary GCD on the plain integer x
-    (a R mod p for Montgomery limbs of a): each step one subtraction and
-    the stripping of its factors of 2."""
+def inv_batches(x):
+    """The batches of csrc/fp384.cuh inv on the plain integer x (a R mod
+    p for Montgomery limbs of a): Pornin's binary GCD, 30 steps a batch on
+    62-bit approximations of a and b, until a = 0."""
     from harmony_tpu_torch.ref.params import P
 
-    u, v = x, P
-    if u == 0:
-        return 0
-    u >>= (u & -u).bit_length() - 1
-    steps = 0
-    while u != v:
-        steps += 1
-        if u > v:
-            u -= v
-            u >>= (u & -u).bit_length() - 1
-        else:
-            v -= u
-            v >>= (v & -v).bit_length() - 1
-    return steps
+    mask30, top32 = (1 << 30) - 1, (1 << 32) - 1
+    a, b, batches = x, P, 0
+    while a:
+        n = max(a.bit_length(), b.bit_length(), 62)
+        ta = a & mask30 | (a >> (n - 32) & top32) << 30
+        tb = b & mask30 | (b >> (n - 32) & top32) << 30
+        f0, g0, f1, g1 = 1, 0, 0, 1
+        for _ in range(30):
+            if ta & 1:
+                if ta < tb:
+                    ta, tb, f0, g0, f1, g1 = tb, ta, f1, g1, f0, g0
+                ta, f0, g0 = ta - tb, f0 - f1, g0 - g1
+            ta, f1, g1 = ta >> 1, 2 * f1, 2 * g1
+        a, b = abs(a * f0 + b * g0) >> 30, abs(a * f1 + b * g1) >> 30
+        batches += 1
+    return batches
 
 
 def inv_ops(limbs):
     """The int32 operations of inverting the rows of ``limbs`` (..., 32):
-    the GCD's steps on each row's value, and one Montgomery product."""
+    the GCD's batches on each row's value, and one Montgomery product."""
     from harmony_tpu_torch.ops.limbs import limbs_to_int
 
     values = [limbs_to_int(r) for r in limbs.reshape(-1, 32).cpu().numpy()]
-    return sum(gcd_steps(x) * INV_STEP_OPS + MONT_IMAD for x in values if x)
+    return sum(inv_batches(x) * INV_BATCH_OPS + MONT_IMAD
+               for x in values if x)
 
 
 def inv_work(limbs):
@@ -484,14 +493,14 @@ def final_exp_gcd_value(limbs):
 def final_exp_work(f):
     """(ms, what bounds it) of final_exp on these lanes f (..., 2, 3, 2,
     32): read f and write the result once; the plain version's products
-    per lane, and the GCD's steps on each lane's Fp value (none for a
+    per lane, and the GCD's batches on each lane's Fp value (none for a
     zero lane) with the Montgomery product after them."""
     lanes = f.reshape(-1, 2, 3, 2, 32).cpu()
     ops = len(lanes) * FINAL_EXP_PRODUCTS * MONT_IMAD
     for lane in lanes:
         x = final_exp_gcd_value(lane)
         if x:
-            ops += gcd_steps(x) * INV_STEP_OPS + MONT_IMAD
+            ops += inv_batches(x) * INV_BATCH_OPS + MONT_IMAD
     return roofline(len(lanes) * 2 * 12 * 128, ops)
 
 
@@ -970,10 +979,10 @@ def miller_phase(seed, stats):
 
 
 def inv_phase(seed, stats):
-    """The fp_inv kernel (the binary GCD) against the plain Fermat chain
-    (plain PyTorch on the card, no hand kernel launched), bit for bit, at
-    1, 3, 64 and 3,456 rows with 0, 1 and p - 1 among them; the rows also
-    against the host bigint."""
+    """The fp_inv kernel (batched binary GCD steps) against the plain
+    Fermat chain (plain PyTorch on the card, no hand kernel launched), bit
+    for bit, at 1, 3, 64 and 3,456 rows with 0, 1 and p - 1 among them;
+    the rows also against the host bigint."""
     import torch
 
     from harmony_tpu_torch.kernels import fp_inv as KI
@@ -1291,7 +1300,7 @@ def final_exp_timing_phase(f):
     final_exp_phase: wrapper-inclusive ms by CUDA events, the kernel's own
     device time by torch.profiler, the ms of the composition over the
     other kernels that it replaced, the bound from these inputs (the GCD's
-    steps counted from each lane's data), the wrapper's host cost per
+    batches counted from each lane's data), the wrapper's host cost per
     call; and at 1 lane the plain version's ms (plain PyTorch on the
     card, some seconds a call)."""
     from harmony_tpu_torch.kernels import final_exp as KF
@@ -1440,6 +1449,25 @@ def timed(fn, *args):
             1e3 * sum(waited))
 
 
+def median_ms(fn, *args, want):
+    """(median, least, most) wall ms of MEDIAN_CALLS calls of fn(*args),
+    after the calls that warmed it; each call ends on the host (the
+    verdicts are host bools), and each verdict must be ``want``."""
+    import statistics
+
+    import torch
+
+    times = []
+    for _ in range(MEDIAN_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        check(out == want, f"{fn.__name__}: verdicts changed between calls")
+    return statistics.median(times), min(times), max(times)
+
+
 def slice_phase(seed):
     """The quorum-verify path at mainnet width through its entry points."""
     from harmony_tpu_torch import device as D
@@ -1470,7 +1498,8 @@ def slice_phase(seed):
     check(ok is True, "valid quorum certificate rejected")
     ok, ms, made, wait = timed(fn, table, bits, h, sig)
     check(ok is True, "valid quorum certificate rejected (second call)")
-    results["agg_verify_hashed_on_device"] = (ms, made, ops, wait)
+    results["agg_verify_hashed_on_device"] = (
+        ms, made, ops, wait, median_ms(fn, table, bits, h, sig, want=True))
     sources["agg_verify_hashed_on_device"] = src
     calls = {"one quorum check": (fn, table, bits, h, sig)}
     for what, args in (("one bit flipped", (flipped, h, sig)),
@@ -1508,7 +1537,8 @@ def slice_phase(seed):
     check(out == want, f"replay batch verdicts {out} != {want}")
     out, ms, made, wait = timed(fn, table, *args)
     check(out == want, "replay batch verdicts (second call)")
-    results["agg_verify_batch_on_device"] = (ms, made, ops, wait)
+    results["agg_verify_batch_on_device"] = (
+        ms, made, ops, wait, median_ms(fn, table, *args, want=want))
     sources["agg_verify_batch_on_device"] = src
     calls["one replay batch of 64 headers"] = (fn, table, *args)
     log(f"agg_verify_batch_on_device: {len(lanes)} headers, "
@@ -1530,7 +1560,9 @@ def slice_phase(seed):
     out, ms, made, wait = timed(fn, pk_pts, h_pts, sig_pts)
     check(out == expect, "single checks (second call)")
     calls["8 single checks"] = (fn, pk_pts, h_pts, sig_pts)
-    results["verify_many_on_device"] = (ms, made, ops, wait)
+    results["verify_many_on_device"] = (
+        ms, made, ops, wait,
+        median_ms(fn, pk_pts, h_pts, sig_pts, want=expect))
     sources["verify_many_on_device"] = src
     log(f"verify_many_on_device: {SINGLE_CHECKS} checks, "
         f"{sum(expect)} valid and {len(expect) - sum(expect)} forged")
@@ -1540,10 +1572,10 @@ def slice_phase(seed):
     ok, ms, made, wait = timed(D.verify_on_device, pks[i], payloads[0],
                                g2.mul(hashes[0], sks[i]))
     check(ok is True, "verify_on_device rejected a valid signature")
-    results["verify_on_device"] = (ms, made, None, wait)
+    results["verify_on_device"] = (ms, made, None, wait, None)
     log("verify_on_device: valid signature True")
 
-    for name, (ms, made, ops, wait) in results.items():
+    for name, (ms, made, ops, wait, median) in results.items():
         for kernel, n in made.items():
             if kernel in ENTRY_KERNELS[name]:
                 check(n > 0, f"{name} never launched the {kernel} kernel")
@@ -1554,6 +1586,9 @@ def slice_phase(seed):
                 f"for the card at the end), " + ", ".join(
                     f"{n} {kernel}" for kernel, n in made.items())
                 + " launches")
+        if median is not None:
+            line += (f"; over {MEDIAN_CALLS} more calls {median[0]:.3f} ms "
+                     f"median ({median[1]:.3f} to {median[2]:.3f})")
         if ops is not None:
             dispatches = sum(made.values()) + ops
             line += (f" and {ops} other tensor ops per call: {dispatches} "
@@ -1691,9 +1726,10 @@ def main(argv=None):
     sass = sass_sizes()
     for kernel, line in ptxas.items():
         log(f"ptxas, {kernel}: {line}; {sass[kernel]} SASS instructions")
-    # the phase plans keep every index into a register array constant
+    # the phase plans and rounds keep every index into a register array
+    # constant
     for kernel in ("fp12_mul", "fp12_cyclo_sqr", "miller_loop",
-                   "final_exp"):
+                   "g1_masked_sum", "final_exp"):
         check(all(f"0 bytes {what}" in ptxas[kernel] for what in
                   ("stack frame", "spill stores", "spill loads")),
               f"{kernel} has a stack frame or spills: {ptxas[kernel]}")

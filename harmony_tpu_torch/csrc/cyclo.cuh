@@ -19,7 +19,8 @@
 //                   t7 = D_1, D_j = sq(first + second) - (sq(first) +
 //                   sq(second)); each task forms its own t and writes the
 //                   element it read, so the value is squared in place
-// Each kind of task has warps of its own (phases::Beside).
+// Each kind of task has warps of its own (phases::Beside).  SquareLazy
+// is the same squaring with the products' operands not reduced.
 //
 // The scratch area (elements of 12 words): the value, the sums and the
 // products, 36 elements, 1,728 B.
@@ -124,8 +125,27 @@ struct NextHigh : phases::Linear<4> {  // z4, z5 from t6 = D_0, t7 = D_1
 };
 
 // One squaring.
-using Square = phases::Plan<Sums, phases::Beside<SquaresC<0>, SquaresC<1>>,
-                            phases::Beside<NextLow, NextT8, NextHigh>>;
+using Next = phases::Beside<NextLow, NextT8, NextHigh>;
+using Square =
+    phases::Plan<Sums, phases::Beside<SquaresC<0>, SquaresC<1>>, Next>;
 constexpr int kThreads = phases::block_threads<Square>();
+
+// The same squaring with the products' operands not reduced
+// (final_exp.cuh runs it): (x0 + x1, x0 - x1 + p) and (x0, x1 + x1), each
+// below 2p, which the Montgomery product takes and still gives canonical
+// results, so the products, and all that follows, are the same words.
+template <int C>
+struct SquaresLazyC : phases::Products<9> {
+  static FP384_FN int operands(int q, const uint32_t* s, uint32_t x[kWords],
+                               uint32_t y[kWords]) {
+    const int j = q / 3, m = q % 3;
+    const int e = m == 0 ? kV + 2 * first(j)
+                : m == 1 ? kV + 2 * second(j) : kSum + 2 * j;
+    phases::csqr_lazy(s, e, C, x, y);
+    return kSq + 2 * q + C;
+  }
+};
+using SquaresLazy = phases::Beside<SquaresLazyC<0>, SquaresLazyC<1>>;
+using SquareLazy = phases::Plan<Sums, SquaresLazy, Next>;
 
 }  // namespace cyclo

@@ -12,19 +12,21 @@
 // schedule.  Every value is canonical, so each product, inverse and
 // Frobenius map gives the plain version's limbs whatever the formula; the
 // squarings of the powers are the plain version's Granger-Scott
-// polynomial (cyclo.cuh Square, unchanged), so a lane outside the
-// cyclotomic subgroup (a pad lane's Miller value, or 0) gets the plain
-// version's limbs too, and the inverse keeps 0 -> 0.
+// polynomial (cyclo.cuh SquareLazy: Square's canonical operations, its
+// products' operands left below 2p), so a lane outside the cyclotomic
+// subgroup (a pad lane's Miller value, or 0) gets the plain version's
+// limbs too, and the inverse keeps 0 -> 0.
 //
 // The lane's values stay in its scratch area for the whole call (elements
-// of 12 words): the accumulator (squared in place by Square, whose sums
-// and products follow it), the base of the power, f2^3, m3, the input,
-// and one region for the intermediates of a product, a Frobenius map or
-// the inverse.  The steps are a program (make_program) fixed at compile
-// time, read from a table at run time (__constant__ on the card), so
-// that each plan's code appears once: the loop over the program runs a
-// run of squarings, a product ACC = ACC BASE, a Frobenius map of BASE in
-// place, the inverse, or a move of one value to another slot.
+// of 12 words): the accumulator (squared in place, its sums and products
+// following it), the base of the power, f2^3, m3, the input, and one
+// region for the intermediates of a product, a Frobenius map or the
+// inverse.  The steps are a program (make_program) fixed at compile
+// time: a run of squarings, a product ACC = ACC BASE, a Frobenius map of
+// BASE in place, the inverse, or a move of one value to another slot.
+// The card runs it as one table of the steps' phases (make_phases), so
+// that each phase's code appears once and the product's once; the host
+// test runs both the table and each step by its plan (run_step).
 //
 // From the generated header (kernels/_build.py params_header):
 //   HARMONY_MILLER_DBL, HARMONY_MILLER_ADD   |x|'s schedule: per segment,
@@ -37,6 +39,8 @@
 #pragma once
 
 #include <cstdint>
+#include <tuple>
+#include <type_traits>
 
 #include "cyclo.cuh"
 #include "fp12_plans.cuh"
@@ -157,11 +161,11 @@ using Frob = phases::Plan<FrobProducts<K>, FrobCombine>;
 // version: f^-1 = (a0 n^-1, -a1 n^-1) with n = a0^2 - v a1^2 over Fp6;
 // n^-1 = (t0, t1, t2) d^-1 with t0 = n0^2 - xi n1 n2, t1 = xi n2^2 - n0 n1,
 // t2 = n1^2 - n0 n2 and d = n0 t0 + xi (n2 t1 + n1 t2) over Fp2; d^-1 =
-// (d0, -d1) (d0^2 + d1^2)^-1, the one Fp inverse (fp384.cuh inv, the
-// binary GCD, on one thread; it inverts a public pairing value, so its
-// variable time is acceptable here).  A zero f has zero norms and gets 0,
-// as the plain version.  Fp6 products by fp12_plans.cuh, Fp2 products by
-// Karatsuba.
+// (d0, -d1) (d0^2 + d1^2)^-1, the one Fp inverse (fp384.cuh inv4,
+// batched binary GCD steps on four threads; it inverts a public pairing
+// value, so its variable time is acceptable here).  A zero f has zero
+// norms and gets 0, as the plain version.  Fp6 products by fp12_plans.cuh,
+// Fp2 products by Karatsuba.
 //
 //   phase        tasks  writes
 //   Sq           4 ph.  kIU: a0^2, a1^2 (Fp6Products, 36 products)
@@ -171,7 +175,7 @@ using Frob = phases::Plan<FrobProducts<K>, FrobCombine>;
 //   NTProducts   9      kIM: n0 t0, n2 t1, n1 t2
 //   Fp2Norm      2      kID: d
 //   Fp2NormSq    2      kIDsq: d0^2, d1^2
-//   Gcd          1      kIE: (d0^2 + d1^2)^-1
+//   Gcd          4      kIE: (d0^2 + d1^2)^-1 (four threads)
 //   Fp2NormInv   2      kIDi: d^-1
 //   TProducts    9      kIO: t_i d^-1
 //   Fp6NormInv   6      kINi: n^-1
@@ -290,12 +294,20 @@ struct Fp2NormSq : phases::Products<2> {
   }
 };
 
-struct Gcd : phases::Linear<1> {  // (d0^2 + d1^2)^-1, 0 for 0
-  static FP384_FN void task(int, uint32_t* s) {
+// (d0^2 + d1^2)^-1, 0 for 0: on the card the four tasks are the four
+// threads of fp384::inv4; under g++ task 0 runs fp384::inv, which steps
+// the same four threads in turn.
+struct Gcd : phases::Linear<4> {
+  static FP384_FN void task(int k, uint32_t* s) {
     uint32_t a[kWords], r[kWords];
     phases::ld_add(s, kIDsq, kIDsq + 1, a);
+#if defined(__CUDA_ARCH__)
+    fp384::inv4(k, 0xfu, a, r);
+#else
+    if (k) return;
     fp384::inv(a, r);
-    st(s, kIE, r);
+#endif
+    if (k == 0) st(s, kIE, r);
   }
 };
 
@@ -455,65 +467,265 @@ FP384_FN int step_at(int i) {
 #endif
 }
 
-// One step of the program: `run` runs a plan and returns false if the
-// plan's tasks conflicted (the host test's runner; the card's never does).
-template <class Run>
-FP384_FN bool run_step(const Run& run, int step) {
-  switch (step & 0xff) {
-    case kEnd:
-      return true;
+// The plan of one step of the program, given to v (which returns false
+// if the plan's tasks conflicted: the host test's runner; the card's
+// never does).  A run of squarings is its plan once; the caller repeats
+// it.
+template <class V>
+FP384_FN constexpr bool visit(const V& v, int op) {
+  switch (op) {
     case kInverse:
-      return run(Inverse{});
-    case kSquare: {
-      bool ok = true;
-      FP384_ROLLED
-      for (int r = 0; r < step >> 8; ++r) ok = run(cyclo::Square{}) && ok;
-      return ok;
-    }
+      return v(Inverse{});
+    case kSquare:
+      return v(cyclo::SquareLazy{});
     case kMul:
-      return run(Mul::Plan{});
+      return v(Mul::Plan{});
     case kFrob1:
-      return run(Frob<1>{});
+      return v(Frob<1>{});
     case kFrob2:
-      return run(Frob<2>{});
+      return v(Frob<2>{});
     case kConjAcc:
-      return run(phases::Plan<Move<kAcc, kAcc, true>>{});
+      return v(phases::Plan<Move<kAcc, kAcc, true>>{});
     case kAccFromBase:
-      return run(phases::Plan<Move<kBase, kAcc, false>>{});
+      return v(phases::Plan<Move<kBase, kAcc, false>>{});
     case kBaseFromAcc:
-      return run(phases::Plan<Move<kAcc, kBase, false>>{});
+      return v(phases::Plan<Move<kAcc, kBase, false>>{});
     case kBaseFromConjAcc:
-      return run(phases::Plan<Move<kAcc, kBase, true>>{});
+      return v(phases::Plan<Move<kAcc, kBase, true>>{});
     case kBaseFromM3:
-      return run(phases::Plan<Move<kM3, kBase, false>>{});
+      return v(phases::Plan<Move<kM3, kBase, false>>{});
     case kBaseFromConjM3:
-      return run(phases::Plan<Move<kM3, kBase, true>>{});
+      return v(phases::Plan<Move<kM3, kBase, true>>{});
     case kBaseFromF2:
-      return run(phases::Plan<Move<kF2, kBase, false>>{});
+      return v(phases::Plan<Move<kF2, kBase, false>>{});
     case kF2FromAcc:
-      return run(phases::Plan<Move<kAcc, kF2, false>>{});
+      return v(phases::Plan<Move<kAcc, kF2, false>>{});
     case kM3FromAcc:
-      return run(phases::Plan<Move<kAcc, kM3, false>>{});
+      return v(phases::Plan<Move<kAcc, kM3, false>>{});
     default:
       return false;
   }
 }
 
-// The whole final exponentiation on one lane whose f is loaded at kT; the
-// result is at kAcc.  One loop over the program, each step's plans in
-// one place.
+// One step of the program by plans (the host test runs each step alone
+// this way): `run` runs a plan.
 template <class Run>
-FP384_FN bool run_program(const Run& run) {
+FP384_FN bool run_step(const Run& run, int step) {
+  const int op = step & 0xff;
+  if (op == kEnd) return true;
   bool ok = true;
+  const int n = op == kSquare ? step >> 8 : 1;
   FP384_ROLLED
-  for (int i = 0;; ++i) {
-    const int step = step_at(i);
-    if ((step & 0xff) == kEnd) return ok;
-    ok = run_step(run, step) && ok;
+  for (int r = 0; r < n; ++r) ok = visit(run, op) && ok;
+  return ok;
+}
+
+// --- the program as one table of phases --------------------------------------
+//
+// The card runs the whole program as one loop over a table of phases
+// (kPhases, from the program at compile time: 1,198 entries, each a
+// phase's number and its tasks), so that the code of each phase appears
+// once and the split product once: a product phase forms its operands by
+// its number (product_operands), then every product phase reaches the
+// same product.  Numbers
+// [0, kProducts) are product phases, the rest phases of adds.
+
+template <class... Ph>
+struct List {};
+
+using ProductPhases = List<
+    cyclo::SquaresLazy, Mul::Products, FrobProducts<1>, FrobProducts<2>,
+    Sq::Products, NPairs, NTProducts, Fp2NormSq, Fp2NormInv, TProducts,
+    Out::Products>;
+using LinearPhases = List<
+    cyclo::Sums, cyclo::Next, Mul::Pre, Mul::Sums, Mul::Fp2Combine,
+    Mul::Fp6Combine, Mul::Post, FrobCombine, Sq::Sums, Sq::Fp2Combine,
+    Sq::Fp6Combine, TimesVKinds<Norm>, Cofactors, Fp2Norm, Gcd, Fp6NormInv,
+    Out::Sums, Out::Fp2Combine, Out::Fp6Combine,
+    phases::Beside<Last, Move<kT, kAcc, true>>, Move<kAcc, kAcc, true>,
+    Move<kBase, kAcc, false>, Move<kAcc, kBase, false>,
+    Move<kAcc, kBase, true>, Move<kM3, kBase, false>, Move<kM3, kBase, true>,
+    Move<kF2, kBase, false>, Move<kAcc, kF2, false>, Move<kAcc, kM3, false>>;
+
+template <class... Ph>
+constexpr int length(List<Ph...>) {
+  return sizeof...(Ph);
+}
+constexpr int kProducts = length(ProductPhases{});
+constexpr int kEndPhase = 0xff;
+
+// The index of T in a list, or -1.
+template <class T, class... Ph>
+constexpr int index_of(List<Ph...>) {
+  int i = 0, found = -1;
+  ((std::is_same<T, Ph>::value && found < 0 ? found = i : 0, ++i), ...);
+  return found;
+}
+
+// A phase's entry in the table: its number, and its tasks above it.
+template <class Ph>
+constexpr uint16_t entry() {
+  constexpr int id = Ph::kProduct ? index_of<Ph>(ProductPhases{})
+                                  : kProducts + index_of<Ph>(LinearPhases{});
+  static_assert(id >= 0 && id < kEndPhase && Ph::kTasks < 256,
+                "every phase of the program is in the lists");
+  return static_cast<uint16_t>(id | Ph::kTasks << 8);
+}
+
+constexpr int kMaxPhases = 1536;
+
+struct PhaseTable {
+  uint16_t e[kMaxPhases];
+  int n;
+};
+
+struct Append {
+  PhaseTable* t;
+  template <class... Ph>
+  constexpr bool operator()(phases::Plan<Ph...>) const {
+    ((t->e[t->n++] = entry<Ph>()), ...);
+    return true;
+  }
+};
+
+constexpr PhaseTable make_phases() {
+  constexpr Program p = make_program();
+  PhaseTable t{};
+  for (int i = 0; i < p.n; ++i) {
+    const int op = p.step[i] & 0xff;
+    const int n = op == kSquare ? p.step[i] >> 8 : 1;
+    for (int r = 0; r < n; ++r) visit(Append{&t}, op);
+  }
+  t.e[t.n++] = kEndPhase;
+  return t;
+}
+
+constexpr PhaseTable kPhases = make_phases();
+static_assert(kPhases.n <= kMaxPhases, "the phases fit their table");
+#if defined(__CUDACC__)
+__constant__ PhaseTable kPhasesCard = make_phases();
+#endif
+
+// Entry i of the program's table.
+FP384_FN int phase_at(int i) {
+#if defined(__CUDA_ARCH__)
+  return kPhasesCard.e[i];
+#else
+  return kPhases.e[i];
+#endif
+}
+
+struct ProgramPhases {
+  FP384_FN int operator()(int i) const { return phase_at(i); }
+};
+
+template <int I, class... Ph>
+using At = typename std::tuple_element<I, std::tuple<Ph...>>::type;
+
+// Phase I of a list, if the list has one.
+template <int I, class... Ph>
+struct Nth {
+  static constexpr bool kHas = I < static_cast<int>(sizeof...(Ph));
+  using Type = At<kHas ? I : 0, Ph...>;
+};
+
+// Task k of phase I: its operands and where the product goes (-1:
+// nowhere; a task past the phase's last forms the last's), or its adds.
+template <int I, class... Ph>
+FP384_FN int operands_of(List<Ph...>, int k, const uint32_t* s,
+                         uint32_t x[kWords], uint32_t y[kWords]) {
+  using P = typename Nth<I, Ph...>::Type;
+  const int out = P::operands(k < P::kTasks ? k : P::kTasks - 1, s, x, y);
+  return k < P::kTasks ? out : -1;
+}
+
+template <int I, class... Ph>
+FP384_FN void task_of(List<Ph...>, int k, uint32_t* s) {
+  using P = typename Nth<I, Ph...>::Type;
+  if (k < P::kTasks) P::task(k, s);
+}
+
+// Product phase id's task k, by a binary search over the product
+// phases (a switch here, as for the phases of adds below, takes the kernel
+// above the 128 registers a thread that two blocks of 224 threads allow).
+template <int Lo = 0, int Hi = length(ProductPhases{})>
+FP384_FN int product_operands(int id, int k, const uint32_t* s,
+                              uint32_t x[kWords], uint32_t y[kWords]) {
+  if constexpr (Hi - Lo == 1) {
+    return operands_of<Lo>(ProductPhases{}, k, s, x, y);
+  } else {
+    constexpr int kMid = (Lo + Hi) / 2;
+    return id < kMid ? product_operands<Lo, kMid>(id, k, s, x, y)
+                     : product_operands<kMid, Hi>(id, k, s, x, y);
   }
 }
 
-constexpr int kThreads =
-    phases::block_threads<Mul::Plan, Inverse, Frob<1>, cyclo::Square>();
+constexpr int kLongestList = 32;  // the cases of the switch below
+static_assert(length(LinearPhases{}) <= kLongestList,
+              "the switch below has a case for every phase of adds");
+
+// Phase id's task k of adds, by one switch over the phases of adds, so
+// that such a phase costs one indirect jump to its code.
+#define FINAL_EXP_CASES(X) \
+  X(0) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) \
+  X(13) X(14) X(15) X(16) X(17) X(18) X(19) X(20) X(21) X(22) X(23) \
+  X(24) X(25) X(26) X(27) X(28) X(29) X(30) X(31)
+
+FP384_FN void linear_task(int id, int k, uint32_t* s) {
+  switch (id - kProducts) {
+#define FINAL_EXP_CASE(I)                                 \
+  case I:                                                 \
+    if constexpr (I < length(LinearPhases{})) {           \
+      task_of<I>(LinearPhases{}, k, s);                   \
+    }                                                     \
+    break;
+    FINAL_EXP_CASES(FINAL_EXP_CASE)
+#undef FINAL_EXP_CASE
+  }
+}
+#undef FINAL_EXP_CASES
+
+template <class... Ph>
+constexpr int most_threads(List<Ph...>) {
+  int m = 0;
+  ((m = phases::threads<Ph>() > m ? phases::threads<Ph>() : m), ...);
+  return m;
+}
+constexpr int kMostThreads =
+    most_threads(ProductPhases{}) > most_threads(LinearPhases{})
+        ? most_threads(ProductPhases{})
+        : most_threads(LinearPhases{});
+constexpr int kThreads = (kMostThreads + 31) / 32 * 32;
+
+#if defined(__CUDACC__)
+// The phases of a table (at(i) is entry i; ProgramPhases: the whole
+// final exponentiation, on f at kT, the result at kAcc) on one block
+// whose scratch area is s.  Product phases give each task a group
+// of split::kGroup threads, whole warps at a time (a warp past the last
+// task skips the phase; a group past it in a busy warp multiplies the
+// last task's operands again and stores nothing); the group's first
+// thread stores the product.  Every phase ends with
+// __syncthreads(), which every thread of the block reaches.
+template <class Table>
+__device__ __forceinline__ void run_phases(uint32_t* s, const Table& at) {
+  const int t = threadIdx.x, g = t / split::kGroup, r = t % split::kGroup;
+#pragma unroll 1
+  for (int i = 0;; ++i) {
+    const int e = at(i), id = e & 0xff, tasks = e >> 8;
+    if (id == kEndPhase) break;
+    if (id < kProducts) {
+      if (t < (tasks * split::kGroup + 31) / 32 * 32) {
+        uint32_t x[kWords], y[kWords], z[kWords];
+        const int out = product_operands(id, g, s, x, y);
+        split::mont_mul(r, x, y, z);
+        if (r == 0 && out >= 0) fp12::st(s, out, z);
+      }
+    } else {
+      linear_task(id, t, s);
+    }
+    __syncthreads();
+  }
+}
+#endif  // __CUDACC__
 
 }  // namespace final_exp

@@ -16,10 +16,13 @@
 //      from thread r + 1 to thread r is the only one exchanged.
 // Every sum fits in 64 bits: x_J, y_J <= 2^64 - 2^32, and the new word is
 // at most 3 (2^32 - 1) + hi_J < 2^34, so hi stays <= 3.  The value is
-// t's, so t < 2p after each iteration as in the one-thread CIOS.  At the
-// end each thread folds its carries into 3 words and one carry out, thread
-// 0 gathers the other threads' 12 values, ripples the carries and
-// subtracts p once if t >= p: fp384::mont_mul's canonical output.
+// t's, as in the one-thread CIOS: t < b + p after each iteration, and at
+// the end t = (a b + M p) / 2^384 < a b / 2^384 + p.  So operands below 2p
+// (not only canonical ones) keep t below 3p < 2^383 throughout and below
+// 1.5p at the end (a b < 4p^2 < 2^384 p / 2).  At the end each thread
+// folds its carries into 3 words and one carry out, thread 0 gathers the
+// other threads' 12 values, ripples the carries and subtracts p once if
+// t >= p: fp384::mont_mul's canonical output.
 //
 // The product is written as steps: thread r of step s reads what the
 // exchange after step s - 1 gave it, updates its registers (Part), and

@@ -18,26 +18,34 @@
 //   operations: Montgomery products of 576 IMAD, for each add of two
 //   finite points 16, 11 where one has Z = 1 and 6 where both have (an
 //   affine leaf, or one passed up against infinity); the inversion's
-//   steps and 4 products for the affine form.
+//   batches and 4 products for the affine form.
 // At 1 to 256 lanes both bounds are microseconds or less.  The cost is
-// one lane's dependent chain: log2(n) levels of 16 products each (plus
-// the adds and a block barrier), then the inversion on one thread.
+// one lane's dependent chain: log2(n) levels of adds (rounds of products
+// with the adds between them, and a barrier), then the inversion on one
+// thread.
 //
-// Design: the SM's integer pipes, shuffles and shared memory.
+// Design: the SM's integer pipes, shuffles, votes and shared memory.
 //  - One block per lane: the lane's points, selected and padded, sit in
 //    shared memory (144 B each; 147,456 B at bucket 1024, above the 48 KB
 //    default, so the entry point raises the kernel's dynamic shared memory
 //    limit first).  Each level adds point k + half into point k, in place.
-//  - Each add of a level takes a group of split::kGroup threads, which run
-//    the add-2007-bl formula of g1.cuh with each product split over the
-//    group (fp384_split.cuh) and shared back by four-lane shuffles; up to
-//    64 groups (256 threads), so bucket 256's first level is two rounds,
-//    bucket 1024's eight.  A warp with no add left in a round skips it; a
-//    group past the last add in a busy warp adds two points at infinity
-//    and stores nothing.  Adds whose operands are equal double, and the
-//    doubling runs only in warps where some add needs it.
-//  - The affine form: thread 0 inverts Z (fp384::inv, the binary extended
-//    GCD), then the first warp makes the four products.
+//  - Each add of a level takes G = 1, 2 or 4 groups of split::kGroup
+//    threads, as many as the level leaves idle (4 groups once the adds
+//    fit), inside one warp.  It runs g1.cuh's program of add-2007-bl in
+//    rounds of independent products (16 products in 5 rounds; 6 in 3 on
+//    the first level of an affine table, whose Z are 1), the products of a
+//    round G at a time, each on one group by the split product of
+//    fp384_split.cuh, whose threads store their words of it into the add's
+//    scratch area in shared memory; __syncwarp() ends each round.  Up to
+//    512 threads (128 groups; 256 above bucket 512, for shared memory), so
+//    bucket 256's first level is one pass of 6 products a group, its
+//    second 9 rounds, and every later level 5.  A warp with no add left
+//    in a pass skips it; a group past the last add in a busy warp adds two
+//    points at infinity and stores nothing.  Where some add of a warp has
+//    equal operands, the warp runs the doubling's 7 products in 3 rounds.
+//  - The affine form: the first four threads invert Z (fp384::inv4,
+//    batched binary GCD steps), then the first warp makes the four
+//    products in two rounds.
 //
 // Boundary format: points (n, C, 32), one table for every lane, with C = 3
 // (Jacobian: masked_sum's own form) or 2 (affine, (0, 0) for infinity: the
@@ -54,26 +62,38 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kMaxThreads = 512;
 constexpr int kMaxPoints = 1024;
 constexpr int kGroupsPerWarp = 32 / split::kGroup;
 constexpr int kLimbs = fp384::kLimbs;
+constexpr int kAddWords = g1::kSlots * fp384::kWords;  // an add's scratch
 using fp384::kWords;
 using g1::kPoint;
 
-// The Montgomery product on a group of split::kGroup lanes: every lane of
-// the warp calls it; each lane of the group gets the product.
-struct GroupMul {
-  int r;  // the lane's place in its group
+// Runs a program's rounds (g1.cuh) on an add's groups: group q of G, lane
+// r of its group.  Every lane of the warp calls it with the same G.
+struct Rounds {
+  int groups, q, r;
+  bool ones;
+  const uint32_t *p1, *p2;
+  uint32_t* sc;
 
-  __device__ __forceinline__ void operator()(const uint32_t* a,
-                                             const uint32_t* b,
-                                             uint32_t* out) const {
-    uint32_t t[kWords];
-    split::mont_mul(r, a, b, t);
-#pragma unroll
-    for (int j = 0; j < kWords; ++j) {
-      out[j] = __shfl_sync(0xffffffffu, t[j], 0, split::kGroup);
+  __device__ __forceinline__ void operator()(int prog) const {
+    const int n = g1::rounds(prog);
+#pragma unroll 1
+    for (int i = 0; i < n; ++i) {
+      const int lo = g1::round_start(prog, i);
+      const int hi = g1::round_start(prog, i + 1);
+#pragma unroll 1
+      for (int j0 = lo; j0 < hi; j0 += groups) {
+        const bool mine = j0 + q < hi;  // else the round's first again
+        const int k = g1::product_slot(prog, mine ? j0 + q : lo);
+        uint32_t x[kWords], y[kWords], z[kWords];
+        g1::operands(prog, k, ones, p1, p2, sc, x, y);
+        split::mont_mul(r, x, y, z);
+        if (mine && r == 0) fp12::st(sc, k, z);
+      }
+      __syncwarp();
     }
   }
 };
@@ -84,15 +104,22 @@ struct WarpAny {
   }
 };
 
-// The shared memory of a lane of n points: the padded leaves, a point at
-// infinity of zero words for the idle groups, and Z^-1.
-int shared_words(int64_t n) { return (g1::leaves(n) + 1) * kPoint + kWords; }
-
-// The threads of a block: a group per add of the first level, in whole
-// warps, at most kMaxThreads.
+// The threads of a block: 4 groups an add of the first level, in whole
+// warps, at most 512 (256 above bucket 512, so that the adds' scratch
+// and the leaves fit in shared memory).
 int block_threads(int64_t n) {
-  const int want = g1::leaves(n) / 2 * split::kGroup;
-  return want <= 32 ? 32 : (want < kMaxThreads ? want : kMaxThreads);
+  const int size = g1::leaves(n);
+  const int most = size > 512 ? 256 : kMaxThreads;
+  const int want = size / 2 * 4 * split::kGroup;
+  return want <= 32 ? 32 : (want < most ? want : most);
+}
+
+// The shared memory of a lane of n points: the padded leaves, a point at
+// infinity of zero words for the idle groups, a scratch area for each
+// group (the most adds one pass can hold), and Z^-1.
+int shared_words(int64_t n) {
+  return (g1::leaves(n) + 1) * kPoint +
+         block_threads(n) / split::kGroup * kAddWords + kWords;
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
@@ -102,8 +129,10 @@ g1_masked_sum_kernel(const int32_t* __restrict__ points,
                      int64_t n, int coords, int64_t lanes) {
   extern __shared__ __align__(16) uint32_t s[];
   const int size = g1::leaves(n);
+  const int groups = blockDim.x / split::kGroup;
   uint32_t* zero = s + size * kPoint;
-  uint32_t* zi = zero + kPoint;
+  uint32_t* scratch = zero + kPoint;
+  uint32_t* zi = scratch + groups * kAddWords;
   const int64_t lane = blockIdx.x;
   const int t = threadIdx.x;
 
@@ -124,24 +153,31 @@ g1_masked_sum_kernel(const int32_t* __restrict__ points,
   for (int j = t; j < kPoint; j += blockDim.x) zero[j] = 0;
   __syncthreads();
 
-  // the tree: point k + half into point k
-  const int groups = blockDim.x / split::kGroup;
+  // the tree: point k + half into point k, G groups an add
   const int g = t / split::kGroup, r = t % split::kGroup;
-  const int warp_first = t / 32 * kGroupsPerWarp;
   for (int half = size / 2; half >= 1; half /= 2) {
-    for (int base = 0; base < half; base += groups) {
+    int G = 1;
+    while (G < 4 && half * 2 * G <= groups) G *= 2;
+    const int at_once = groups / G;  // adds a pass
+    const int a = g / G;             // the thread's add in a pass
+    const int u = g % G * split::kGroup + r;  // its place in the add
+    const int warp_first = t / 32 * kGroupsPerWarp / G;
+    const bool ones = coords == 2 && half == size / 2;
+    for (int base = 0; base < half; base += at_once) {
       if (base + warp_first >= half) continue;  // the whole warp is idle
-      const int k = base + g;
+      const int k = base + a;
       const bool on = k < half;
-      uint32_t sum[kPoint];
-      g1::add(GroupMul{r}, WarpAny{}, on ? s + k * kPoint : zero,
-              on ? s + (k + half) * kPoint : zero, sum);
-      __syncwarp();  // the group has read point k before any lane writes it
-      if (on) {
+      const uint32_t* p1 = on ? s + k * kPoint : zero;
+      const uint32_t* p2 = on ? s + (k + half) * kPoint : zero;
+      uint32_t* sc = scratch + a * kAddWords;
+      const g1::Flags f = g1::add_in_rounds(
+          Rounds{G, g % G, r, ones, p1, p2, sc}, WarpAny{}, ones, p1, p2, sc);
+      uint32_t w[kWords];
+      if (u < 3) g1::result(u, ones, f, p1, p2, sc, w);
+      __syncwarp();  // the add has read point k before it is written
+      if (on && u < 3) {
 #pragma unroll
-        for (int j = 0; j < kPoint; ++j) {
-          if (j % split::kGroup == r) s[k * kPoint + j] = sum[j];
-        }
+        for (int j = 0; j < kWords; ++j) s[k * kPoint + u * kWords + j] = w[j];
       }
     }
     __syncthreads();
@@ -150,20 +186,28 @@ g1_masked_sum_kernel(const int32_t* __restrict__ points,
   // the sum, and its affine form where it is asked for
   if (t < 3) fp384::store_row(s + t * kWords, out + (lane * 3 + t) * kLimbs);
   if (affine != nullptr && t < 32) {
-    if (t == 0) {
+    if (t < 4) {
       uint32_t z[kWords], w[kWords];
 #pragma unroll
       for (int j = 0; j < kWords; ++j) z[j] = s[2 * kWords + j];
-      fp384::inv(z, w);
+      fp384::inv4(t, 0xfu, z, w);
+      if (t == 0) {
 #pragma unroll
-      for (int j = 0; j < kWords; ++j) zi[j] = w[j];
+        for (int j = 0; j < kWords; ++j) zi[j] = w[j];
+      }
     }
     __syncwarp();
-    uint32_t xy[2 * kWords];
-    g1::affine(GroupMul{r}, s, zi, xy);
-    if (t == 0) {
-      fp384::store_row(xy, affine + lane * 2 * kLimbs);
-      fp384::store_row(xy + kWords, affine + (lane * 2 + 1) * kLimbs);
+    // two groups a copy: the first warp's four copies are the same
+    uint32_t* sc = scratch + g / 2 * kAddWords;
+    Rounds{2, g % 2, r, false, s, zi, sc}(g1::kAffine);
+    if (t < 2) {
+      const bool inf = g1::is_zero(g1::Z(s));
+      uint32_t w[kWords];
+#pragma unroll
+      for (int j = 0; j < kWords; ++j) {
+        w[j] = inf ? 0u : sc[(2 + t) * kWords + j];
+      }
+      fp384::store_row(w, affine + (lane * 2 + t) * kLimbs);
     }
   }
 }
@@ -173,8 +217,9 @@ g1_masked_sum_kernel(const int32_t* __restrict__ points,
 // C ABI for ctypes.  points is (n, C, 32) with C = coords (3 Jacobian, 2
 // affine); mask is (n, lanes); out (lanes, 3, 32) and affine (lanes, 2,
 // 32), or a null affine for the sum alone; all int32, contiguous, 16-byte
-// aligned, on the current device; n <= 1024 and lanes < 2^31.  stream is a cudaStream_t.  The launch is asynchronous;
-// the return value is cudaGetLastError().
+// aligned, on the current device; n <= 1024 and lanes < 2^31.  stream is a
+// cudaStream_t.  The launch is asynchronous; the return value is
+// cudaGetLastError().
 extern "C" int harmony_g1_masked_sum(const void* points, const void* mask,
                                      void* out, int64_t lanes, void* affine,
                                      int64_t n, int32_t coords,

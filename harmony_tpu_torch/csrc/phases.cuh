@@ -161,25 +161,68 @@ FP384_FN void add(const uint32_t a[kWords], const uint32_t b[kWords],
 #endif
 }
 
-// (a - b) mod p for canonical a, b.
+// (a - b) mod p for canonical a, b: d = a - b and e = d + p, then d
+// where a >= b.  e's chain needs only d's words, not d's borrow, as
+// add's second chain needs only t's: where a < b, d = a - b + 2^384 >=
+// 2^384 - p and e carries out; where a >= b, e = a - b + p < 2p does not.
 FP384_FN void sub(const uint32_t a[kWords], const uint32_t b[kWords],
                   uint32_t out[kWords]) {
 #if defined(__CUDA_ARCH__)
   constexpr uint32_t p[kWords] = {HARMONY_P_WORDS};
-  uint32_t d[kWords], borrow;
+  uint32_t d[kWords], e[kWords], carry;
   FP384_CHAIN("sub.cc.u32", d[0], a[0], b[0]);
 #pragma unroll
   for (int j = 1; j < kWords; ++j) {
     FP384_CHAIN("subc.cc.u32", d[j], a[j], b[j]);
   }
-  FP384_CHAIN("subc.u32", borrow, 0u, 0u);  // all ones iff a < b
-  FP384_CHAIN("add.cc.u32", out[0], d[0], p[0] & borrow);
+  FP384_CHAIN("add.cc.u32", e[0], d[0], p[0]);
 #pragma unroll
   for (int j = 1; j < kWords; ++j) {
-    FP384_CHAIN("addc.cc.u32", out[j], d[j], p[j] & borrow);
+    FP384_CHAIN("addc.cc.u32", e[j], d[j], p[j]);
   }
+  FP384_CHAIN("addc.u32", carry, 0u, 0u);  // 1 iff a < b
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) out[j] = carry ? e[j] : d[j];
 #else
   fp384::sub(a, b, out);
+#endif
+}
+
+// Operands for a Montgomery product that are not reduced: a + b and
+// a - b + p for canonical a, b, each in [0, 2p), one carry chain or two
+// and no select.  The product takes operands below 2p (fp384_split.cuh).
+FP384_FN void add_lazy(const uint32_t a[kWords], const uint32_t b[kWords],
+                       uint32_t out[kWords]) {
+#if defined(__CUDA_ARCH__)
+  FP384_CHAIN("add.cc.u32", out[0], a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < kWords; ++j) {
+    FP384_CHAIN("addc.cc.u32", out[j], a[j], b[j]);
+  }
+#else
+  fp384::add_words(a, b, out);
+#endif
+}
+
+FP384_FN void sub_lazy(const uint32_t a[kWords], const uint32_t b[kWords],
+                       uint32_t out[kWords]) {
+  constexpr uint32_t p[kWords] = {HARMONY_P_WORDS};
+#if defined(__CUDA_ARCH__)
+  uint32_t d[kWords];
+  FP384_CHAIN("sub.cc.u32", d[0], a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < kWords; ++j) {
+    FP384_CHAIN("subc.cc.u32", d[j], a[j], b[j]);
+  }
+  FP384_CHAIN("add.cc.u32", out[0], d[0], p[0]);
+#pragma unroll
+  for (int j = 1; j < kWords; ++j) {
+    FP384_CHAIN("addc.cc.u32", out[j], d[j], p[j]);
+  }
+#else
+  uint32_t d[kWords];
+  fp384::sub_words(a, b, d);
+  fp384::add_words(d, p, out);
 #endif
 }
 
@@ -257,6 +300,23 @@ FP384_FN void csqr(const uint32_t* s, int e, int c, uint32_t x[kWords],
   fp12::ld(s, e, a0);
   fp12::ld(s, e + 1, a1);
   csqr(a0, a1, c, x, y);
+}
+
+// The same operands, not reduced (each below 2p): (a0 + a1, a0 - a1 + p)
+// and (a0, a1 + a1).
+FP384_FN void csqr_lazy(const uint32_t* s, int e, int c, uint32_t x[kWords],
+                        uint32_t y[kWords]) {
+  uint32_t a0[kWords], a1[kWords];
+  fp12::ld(s, e, a0);
+  fp12::ld(s, e + 1, a1);
+  if (c == 0) {
+    add_lazy(a0, a1, x);
+    sub_lazy(a0, a1, y);
+  } else {
+    FP384_UNROLL
+    for (int j = 0; j < kWords; ++j) x[j] = a0[j];
+    add_lazy(a1, a1, y);
+  }
 }
 
 // Component c of a Karatsuba product over Fp2 from its three products at

@@ -3,8 +3,9 @@
 It replaces no TPU kernel: the JAX package's ``ops/fp.py`` inv is a scan
 of Pallas multiplies over the bits of p - 2, which XLA runs inside its
 jitted programs.  Run eagerly in PyTorch it was 610 one-row ``mont_mul``
-launches in a row; this kernel inverts in one launch, by a binary
-extended GCD (the inverse is unique, so the limbs are the chain's).
+launches in a row; this kernel inverts in one launch, by batched binary
+GCD steps on a group of four threads a row (the inverse is unique, so
+the limbs are the chain's).
 Built with the port's other kernels by ``kernels/_build.py``.
 ``LAUNCHES`` counts the launches.  The plain version is
 ``harmony_tpu_torch.ops.fp.inv_reference``, the Fermat chain.

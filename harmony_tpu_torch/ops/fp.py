@@ -238,7 +238,7 @@ def pow_fixed(a, exponent_bits):
 
 def inv(a):
     """Modular inverse a^-1 = a^(p-2), with inv(0) = 0 (callers guard):
-    one kernel launch for a CUDA tensor (a binary extended GCD), the plain
+    one kernel launch for a CUDA tensor (batched binary GCD steps), the plain
     ``inv_reference`` (Fermat's chain) for a CPU tensor."""
     if a.is_cpu:
         return inv_reference(a)

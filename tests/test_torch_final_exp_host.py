@@ -78,15 +78,46 @@ extern "C" int host_final_exp_program(int32_t* steps, int n) {
   }
 }
 
-// The whole final exponentiation, lane by lane, as the kernel runs it.
-// Returns 0, or -1 if two tasks of one phase wrote the same word.
+// The table of phases into entries (at most n); returns their count, the
+// end included.
+extern "C" int host_final_exp_phases(int32_t* entries, int n) {
+  int i = 0;
+  for (;; ++i) {
+    const int e = final_exp::phase_at(i);
+    if (i < n) entries[i] = e;
+    if ((e & 0xff) == final_exp::kEndPhase) return i + 1;
+  }
+}
+
+// The whole final exponentiation, lane by lane, as the kernel runs it:
+// the table of phases, each product phase's operands by its number and
+// then the split product, each phase of adds by its number.  Returns 0,
+// or -1 if two tasks of one phase wrote the same word.
 extern "C" int host_final_exp(const int32_t* f, int32_t* out, int64_t lanes,
                               int order) {
   std::vector<uint32_t> s(final_exp::kScratch * fp384::kWords);
   for (int64_t lane = 0; lane < lanes; ++lane) {
     host::poison(s);
     load12(f + lane * kLane, s, final_exp::kT);
-    if (!final_exp::run_program(host::Runner{&s, order})) return -1;
+    bool ok = true;
+    for (int i = 0;; ++i) {
+      const int e = final_exp::phase_at(i), id = e & 0xff, tasks = e >> 8;
+      if (id == final_exp::kEndPhase) break;
+      if (id < final_exp::kProducts) {
+        ok = host::run_tasks(s, tasks, order, [&](int k, uint32_t* x) {
+          uint32_t a[fp384::kWords], b[fp384::kWords], r[fp384::kWords];
+          const int at = final_exp::product_operands(id, k, x, a, b);
+          if (at < 0) return;
+          host::split_mul(a, b, r, order == 1);
+          fp12::st(x, at, r);
+        }) && ok;
+      } else {
+        ok = host::run_tasks(s, tasks, order, [&](int k, uint32_t* x) {
+          final_exp::linear_task(id, k, x);
+        }) && ok;
+      }
+    }
+    if (!ok) return -1;
     store12(s, final_exp::kAcc, out + lane * kLane);
   }
   return 0;
@@ -137,6 +168,7 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.host_final_exp_program.argtypes = [ptr, i32]
+    lib.host_final_exp_phases.argtypes = [ptr, i32]
     lib.host_final_exp.argtypes = [ptr, ptr, i64, i32]
     lib.host_final_exp_step.argtypes = [i32] + [ptr] * 5 + [i64, i32]
     return lib
@@ -262,3 +294,21 @@ def test_step_equals_the_plain_version(host_lib, step, order):
     want_acc, want_base = _plain_step(step)
     np.testing.assert_array_equal(acc_out, want_acc)
     np.testing.assert_array_equal(base_out, want_base)
+
+
+def test_phase_table_runs_the_program(host_lib):
+    """The card's table of phases is the program's plans in order: 315
+    squarings of three phases (the sums, the products with operands not
+    reduced, Next), 35 Fp12 products of six, the inverse's 19 phases, three
+    Frobenius maps of two, and the moves, then the end."""
+    steps = np.zeros(256, np.int32)
+    n = host_lib.host_final_exp_program(_ptr(steps), len(steps))
+    entries = np.zeros(2048, np.int32)
+    m = host_lib.host_final_exp_phases(_ptr(entries), len(entries))
+    ids = entries[:m] & 0xFF
+    assert ids[-1] == 0xFF and (ids[:-1] != 0xFF).all()
+    plan_phases = {_OPS["inverse"]: 19, _OPS["square"]: 3, _OPS["mul"]: 6,
+                   _OPS["frob1"]: 2, _OPS["frob2"]: 2}
+    want = sum(plan_phases.get(op, 1) * (arg if op == _OPS["square"] else 1)
+               for op, arg in zip(steps[:n - 1] & 0xFF, steps[:n - 1] >> 8))
+    assert m - 1 == want

@@ -213,6 +213,28 @@ extern "C" int host_fp12_cyclo_sqr(const int32_t* a, int32_t* out,
   return 0;
 }
 
+// n squarings by final_exp's plan, cyclo::SquareLazy (the products'
+// operands not reduced).
+extern "C" int host_fp12_cyclo_sqr_lazy(const int32_t* a, int32_t* out,
+                                          int64_t lanes, int n, int order) {
+  std::vector<uint32_t> s(cyclo::kScratch * kWords);
+  const host::Runner run{&s, order};
+  const int64_t stride = fp12::kElems * fp384::kLimbs;
+  for (int64_t lane = 0; lane < lanes; ++lane) {
+    poison(s);
+    for (int e = 0; e < fp12::kElems; ++e) {
+      load(a + lane * stride + e * fp384::kLimbs, s.data(), cyclo::kV + e);
+    }
+    for (int round = 0; round < n; ++round) {
+      if (!run(cyclo::SquareLazy{})) return -1;
+    }
+    for (int e = 0; e < fp12::kElems; ++e) {
+      store(s.data(), cyclo::kV + e, out + lane * stride + e * fp384::kLimbs);
+    }
+  }
+  return 0;
+}
+
 // Rows of a b 2^-384 mod p: how 0 by fp384::mont_mul, 1 by the split
 // product with its threads forward, 2 in reverse.
 extern "C" void host_mont_mul(const int32_t* a, const int32_t* b, int32_t* out,
@@ -259,7 +281,9 @@ def host_lib(tmp_path_factory):
                                                          ctypes.c_int]
     lib.host_fp12_cyclo_sqr.argtypes = [ctypes.c_void_p] * 2 + [
         ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+    lib.host_fp12_cyclo_sqr_lazy.argtypes = lib.host_fp12_cyclo_sqr.argtypes
     lib.host_fp12_mul.restype = lib.host_fp12_cyclo_sqr.restype = ctypes.c_int
+    lib.host_fp12_cyclo_sqr_lazy.restype = ctypes.c_int
     lib.host_mont_mul.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64,
                                                          ctypes.c_int]
     lib.host_mont_mul.restype = None
@@ -354,6 +378,33 @@ def test_fused_cyclo_sqr_equals_the_plain_loop(host_lib, case, n, order):
     np.testing.assert_array_equal(got, _plain_cyclo(case, n))
 
 
+_LAZY_CASES = {**_CASES, "zero_and_one": (
+    np.stack([np.zeros((2, 3, 2, 32), np.int32),
+              TT.fp12_one((1,)).numpy()[0]]), None)}
+
+
+@pytest.mark.parametrize("order", sorted(_ORDERS))
+@pytest.mark.parametrize("n", [1, 2, 63])
+@pytest.mark.parametrize("case", sorted(_LAZY_CASES))
+def test_lazy_squaring_equals_the_three_phase_plan(host_lib, case, n, order):
+    """final_exp's squaring (cyclo::SquareLazy: the products' operands
+    (x0 + x1, x0 - x1 + p) and (x0, x1 + x1) not reduced) equals
+    cyclo::Square, which fp12_cyclo_sqr.cu runs, for runs of 1, 2 and 63
+    squarings, each phase forward, in reverse and isolated, on random
+    values off the cyclotomic subgroup (where the polynomial is not the
+    square), the carry vectors, cyclotomic values, 0 and 1."""
+    a = _LAZY_CASES[case][0]
+    got = _host(host_lib.host_fp12_cyclo_sqr_lazy, a,
+                extra=(n, _ORDERS[order]))
+    want = _host(host_lib.host_fp12_cyclo_sqr, a, extra=(n, 0))
+    np.testing.assert_array_equal(got, want)
+    if n <= 2:
+        plain = torch.from_numpy(np.ascontiguousarray(a))
+        for _ in range(n):
+            plain = TT.fp12_cyclo_sqr_reference(plain)
+        np.testing.assert_array_equal(got, plain.numpy())
+
+
 def test_zero_squarings_return_the_input(host_lib):
     a, _ = _CASES["random"]
     np.testing.assert_array_equal(
@@ -427,3 +478,28 @@ def test_cyclo_pow_by_segments_equals_one_squaring_at_a_time(sched):
             e = (e << n) + mul
         want = [RF.fp12_pow(JI.arr_to_fp12(x), e) for x in a.numpy()]
         assert [JI.arr_to_fp12(x) for x in got.numpy()] == want
+
+
+@pytest.mark.parametrize("threads", ["forward", "reverse"])
+def test_split_product_takes_operands_below_2p(host_lib, threads):
+    """The products of final_exp's squarings take operands that are not
+    reduced, each below 2p: the split product (and fp384::mont_mul) still
+    give the canonical a b 2^-384 mod p on values in [p, 2p), 2p - 1 and
+    p, against each other and the bigint."""
+    rng = random.Random(0x2b)
+    edges = [0, 1, P - 1, P, P + 1, 2 * P - 1, 2 * P - 2, (1 << 381) % P + P]
+    xs = edges + [rng.randrange(2 * P) for _ in range(64)]
+    ys = edges[::-1] + [rng.randrange(P, 2 * P) for _ in range(64)]
+    pairs = [(x, y) for x in edges for y in edges] + list(zip(xs, ys))
+    a = _limbs([x for x, _ in pairs])
+    b = _limbs([y for _, y in pairs])
+    out = {}
+    for how in (0, 1 if threads == "forward" else 2):
+        out[how] = np.empty_like(a)
+        host_lib.host_mont_mul(a.ctypes.data, b.ctypes.data,
+                               out[how].ctypes.data, len(a), how)
+    np.testing.assert_array_equal(out[1 if threads == "forward" else 2],
+                                  out[0])
+    inv_r = pow(1 << 384, -1, P)
+    assert [limbs_to_int(row) for row in out[0]] == [
+        x * y * inv_r % P for x, y in pairs]
