@@ -9,6 +9,7 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    kernels (harmony_tpu_torch/csrc/mont_mul.cu, fp_addsub.cu,
    fp12_mul.cu, fp12_cyclo_sqr.cu, miller_loop.cu, fp_inv.cu,
    g1_masked_sum.cu and final_exp.cu, one library) from the checkout,
+   and beside them the native host library (native/bls381.cpp, g++),
    with the build's time, each kernel's registers, stack frame, spills
    and shared memory (ptxas) and SASS instructions (cuobjdump); the
    kernels on plans of phases or rounds (fp12_mul, fp12_cyclo_sqr,
@@ -31,7 +32,22 @@ Run from the root of a checkout on a machine with one CUDA card.  It
 4. holds a pairing product on the card against the CPU plain path, and
    profiles one Fp12 product, one quorum check, one replay batch and 8
    single checks (wall time against device time, split by kernel);
-5. prints a JSON line describing each kernel, then, last,
+5. drives the node's verification layer (node_phase): the scheduler's
+   three lanes from three threads at once (quorum checks on CONSENSUS,
+   64 replay checks on SYNC, single checks and proofs of possession on
+   INGRESS), each flush held to its exact launches, every verdict as
+   constructed and as the host path gives it, each lane's median wait
+   in the queue over its requests; Mask.aggregate_public twice (the
+   second call finds the key table in the mask's cache); the entry
+   points from payload bytes with hash_to_g2 native against pure Python;
+   one injected dispatch fault, which must give one counted host
+   fallback; and one failing dispatch on the card, which must raise
+   DeviceError and reach no host path.  device_enabled() must be True
+   by AUTO, the
+   twins off and the native host library loaded; after every phase
+   through an entry point, no check may have fallen back to the host,
+   none may have been shed and the breaker must be closed;
+6. prints a JSON line describing each kernel, then, last,
    {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line.  Without CUDA,
@@ -48,6 +64,7 @@ import random
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1694,6 +1711,331 @@ def profile_phase(seed, entry_calls):
     return out
 
 
+NODE_THREADS = ("consensus", "sync", "ingress")
+POPS = 4
+# a flush of aggregate checks, and one of single checks, launches each of
+# its path's kernels exactly once (every flush here fits one chunk)
+FLUSH_LAUNCHES = {"agg": ENTRY_KERNELS["agg_verify_batch_on_device"],
+                  "single": ENTRY_KERNELS["verify_many_on_device"]}
+
+
+def node_clean(what):
+    """After a phase that went through the node layer or an entry point:
+    no check fell back to the host, none was shed, the breaker is closed."""
+    from harmony_tpu_torch import device as D
+    from harmony_tpu_torch.sched.scheduler import SHED
+
+    check(D.COUNTERS["ref_fallback"] == 0,
+          f"{what}: {D.COUNTERS['ref_fallback']} checks fell back to the "
+          f"host path")
+    check(SHED.total() == 0, f"{what}: the scheduler shed {SHED.total()} "
+          f"checks")
+    check(D.BREAKER.state == "closed",
+          f"{what}: the device breaker is {D.BREAKER.state}")
+
+
+def node_phase(seed):
+    """The node's verification layer on the card: the scheduler's three
+    lanes fed from three threads at once, Mask.aggregate_public, the
+    entry points from payload bytes, and one injected dispatch fault."""
+    import os
+    import statistics
+    import threading
+
+    import torch
+
+    from harmony_tpu_torch import bls as B
+    from harmony_tpu_torch import device as D
+    from harmony_tpu_torch import faultinject as FI
+    from harmony_tpu_torch import prof
+    from harmony_tpu_torch import sched
+    from harmony_tpu_torch.consensus.mask import Mask
+    from harmony_tpu_torch.ref import bls as RB
+    from harmony_tpu_torch.ref import hash_to_curve as HC
+    from harmony_tpu_torch.ref import native as NB
+    from harmony_tpu_torch.ref.curve import g2
+    from harmony_tpu_torch.ref.params import R_ORDER
+    from harmony_tpu_torch.sched.scheduler import FILL, LANE_NAMES
+
+    check(D._FORCED is None and D.device_enabled(),
+          "device_enabled() is not True by AUTO on the card")
+    check(not D.kernel_twin_active(), "HARMONY_KERNEL_TWIN is set")
+    check(os.environ.get("HOST_BLS", "auto") == "auto" and NB.available()
+          and NB._lib is not None, "the native host library did not load")
+    node_clean("before the node phase")
+    started = time.perf_counter()
+    card = card_line()
+
+    rng = random.Random(seed + 3)
+    sks, pks = build_committee(rng)
+    table = D.get_committee_table([RB.pubkey_to_bytes(p) for p in pks], pks)
+    check((table.size, table.device.type) == (256, "cuda"),
+          "the node's committee table is not a bucket of 256 on the card")
+    payload = b"harmony shard 0 commit %d" % seed
+    h = HC.hash_to_g2(payload)
+    bits = [0] * COMMITTEE
+    for i in rng.sample(range(COMMITTEE), QUORUM):
+        bits[i] = 1
+    sig = agg_sign(sks, bits, h)
+    flipped = list(bits)
+    flipped[bits.index(1)] = 0
+    qcs = [(bits, sig, True), (flipped, sig, False),
+           (bits, ((0, 0), (0, 0)), False)]
+    # 64 replay checks: 16 headers, each 4 times, a quarter forged
+    replay = []
+    for j in range(REPLAY_DISTINCT):
+        pj = b"harmony shard 0 replay %d seed %d" % (j, seed)
+        hj = HC.hash_to_g2(pj)
+        bm = [0] * COMMITTEE
+        for i in rng.sample(range(COMMITTEE), rng.randrange(134, 201)):
+            bm[i] = 1
+        sj = agg_sign(sks, bm, hj)
+        if j % 4 == 1:
+            sj = g2.neg(sj)
+        replay.append((bm, hj, sj, j % 4 != 1))
+    replay = [t for t in replay for _ in range(REPLAY_REPEAT)]
+    # 8 single checks (every third forged) and 4 proofs of possession
+    singles = []
+    for k in range(SINGLE_CHECKS):
+        i = rng.randrange(COMMITTEE)
+        pk_msg = b"harmony tx %d seed %d" % (k, seed)
+        hk = HC.hash_to_g2(pk_msg)
+        forged = k % 3 == 2
+        singles.append((pks[(i + 1) % COMMITTEE] if forged else pks[i], hk,
+                        g2.mul(hk, sks[i]), not forged))
+    pop_keys = [B.PrivateKey(rng.randrange(1, R_ORDER)) for _ in range(POPS)]
+    pops = [(k.pub.bytes, B.proof_of_possession(k)) for k in pop_keys]
+    # the host path's verdicts, for each distinct check
+    for bm, sg, want in qcs:
+        check(D._ref_agg_verify(table, bm, h, sg) is want,
+              "host verdict of a quorum check differs from its construction")
+    for bm, hj, sj, want in replay[::REPLAY_REPEAT]:
+        check(D._ref_agg_verify(table, bm, hj, sj) is want,
+              "host verdict of a replay check differs from its construction")
+    for pk, hk, sk_sig, want in singles:
+        check(RB.verify_hashed(pk, hk, sk_sig) is want,
+              "host verdict of a single check differs from its construction")
+
+    sched.reset()
+    sched.configure(device="cuda")
+    s = sched.scheduler()
+    flushes = []
+    for kind, attr in (("agg", "_run_agg"), ("single", "_run_single")):
+        run = getattr(s, attr)
+
+        def counted(batch, kind=kind, run=run):
+            before = launches()
+            out = run(batch)
+            flushes.append((kind, len(batch), {
+                k: n - before[k] for k, n in launches().items()}))
+            return out
+        setattr(s, attr, counted)
+    # each request's enqueue-to-dispatch wait, read where the scheduler
+    # observes it into its histogram
+    lane_waits = {name: [] for name in LANE_NAMES.values()}
+    observe = s._observe_waits
+
+    def observed(batch):
+        now = s._clock()
+        for req in batch:
+            lane_waits[LANE_NAMES[req.lane]].append(now - req.enqueued_at)
+        observe(batch)
+    s._observe_waits = observed
+    for module in wrappers().values():
+        module.LAUNCHES = 0
+    got, errors = {}, []
+    start = threading.Barrier(len(NODE_THREADS))
+
+    def consensus():
+        start.wait()
+        got["consensus"] = [
+            sched.agg_verify(table, bm, payload, sg,
+                             lane=sched.Lane.CONSENSUS)
+            for bm, sg, _ in qcs]
+
+    def sync():
+        start.wait()
+        got["sync"] = sched.agg_verify_many(
+            table, [t[0] for t in replay], [t[1] for t in replay],
+            [t[2] for t in replay], lane=sched.Lane.SYNC)
+
+    def ingress():
+        start.wait()
+        futs = [s.submit_single(pk, hk, sg, lane=sched.Lane.INGRESS)
+                for pk, hk, sg, _ in singles]
+        got["pop"] = B.verify_proofs_of_possession(pops)
+        got["ingress"] = [f.result(60) for f in futs]
+
+    def run(fn):
+        try:
+            fn()
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(fn,))
+               for fn in (consensus, sync, ingress)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"a lane's thread failed: {errors}")
+    path, lane_flushes = launches(), list(flushes)
+    check(got["consensus"] == [want for _, _, want in qcs],
+          f"quorum checks through the scheduler: {got['consensus']}")
+    check(got["sync"] == [t[3] for t in replay],
+          "replay checks through the scheduler differ from construction")
+    check(got["ingress"] == [t[3] for t in singles],
+          f"single checks through the scheduler: {got['ingress']}")
+    check(got["pop"] is True, "valid proofs of possession rejected")
+    bad = list(pops)
+    bad[1] = (bad[1][0], pops[2][1])
+    check(B.verify_proofs_of_possession(bad) is False,
+          "a proof of another key accepted")
+    for kind, n, made in flushes:
+        want = {k: int(k in FLUSH_LAUNCHES[kind]) for k in made}
+        check(made == want, f"a {kind} flush of {n} checks launched {made}")
+    for name in PATH_KERNELS:
+        check(path[name] > 0, f"the node path never launched {name}")
+    by_kind = collections.Counter(kind for kind, _, _ in lane_flushes)
+    items, slots = FILL["items"], FILL["slots"]
+    waits = {name: (statistics.median(w) if w else None, len(w))
+             for name, w in lane_waits.items()}
+    log(f"[{card}] node lanes, 3 threads at once: {len(qcs)} quorum checks "
+        f"(CONSENSUS), {len(replay)} replay checks (SYNC), "
+        f"{SINGLE_CHECKS} single checks and {POPS} proofs of possession "
+        f"(INGRESS), every verdict as built and as the host path's, in "
+        f"{wall:.3f} s; flushes: " + ", ".join(
+            f"{n} {kind}" for kind, n in sorted(by_kind.items()))
+        + f" ({sorted(n for _, n, _ in lane_flushes)} checks each); fill "
+        "ratio "
+        f"{items}/{slots} = {items / slots if slots else 0:.3f} over the "
+        "batched flushes (the check of a forged proof after the threads "
+        "included); median wait in the queue " + ", ".join(
+            f"{name} {1e3 * w} ms of {n}" if n else f"{name} none"
+            for name, (w, n) in waits.items())
+        + "; launches " + ", ".join(f"{n} {k}" for k, n in path.items()))
+    node_clean("the scheduler's lanes")
+
+    # one quorum check through the scheduler against the direct call
+    def via_sched():
+        return s.submit_agg(table, bits, h, sig).result(60)
+
+    def direct():
+        return D.agg_verify_hashed_on_device(table, bits, h, sig)
+
+    qc_ms = {}
+    for name, fn in (("through the scheduler", via_sched),
+                     ("direct", direct)):
+        times = []
+        for _ in range(MEDIAN_CALLS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            check(fn() is True, f"valid quorum check rejected, {name}")
+            times.append(1e3 * (time.perf_counter() - t))
+        qc_ms[name] = (statistics.median(times), min(times), max(times))
+    log(f"[{card}] one quorum check, median of {MEDIAN_CALLS} calls: "
+        + "; ".join(
+        f"{name} {m:.3f} ms ({lo:.3f} to {hi:.3f})"
+        for name, (m, lo, hi) in qc_ms.items()))
+    sched.reset()
+    node_clean("the quorum check through the scheduler")
+
+    # Mask.aggregate_public: 150 of 200 keys, twice; the second call
+    # finds the key table in the mask's cache and ships the bitmap alone
+    mask = Mask(pks)
+    for i, b in enumerate(bits):
+        mask.set_bit(i, bool(b))
+    want = mask.aggregate_public(device=False)
+    for call in ("first", "second"):
+        before, h2d = launches(), D.TRANSFER["h2d"]
+        got_pk = mask.aggregate_public()
+        made = {k: n - before[k] for k, n in launches().items()}
+        sent = D.TRANSFER["h2d"] - h2d
+        check(got_pk == want, f"Mask.aggregate_public ({call} call) differs "
+              f"from the host aggregate")
+        check(made == {k: int(k == "g1_masked_sum") for k in made},
+              f"Mask.aggregate_public ({call} call) launched {made}")
+        if call == "second":
+            check(sent == 4 * 256, f"the cached call shipped {sent} bytes, "
+                  f"not the bitmap's {4 * 256}")
+        log(f"Mask.aggregate_public, {call} call: == host aggregate, one "
+            f"g1_masked_sum launch, {sent} bytes to the card")
+    node_clean("Mask.aggregate_public")
+
+    # the entry points from payload bytes; hash_to_g2 timed by prof
+    prof.reset()
+    prof.configure(enabled=True)
+    for _ in range(3):
+        check(D.agg_verify_on_device(table, bits, payload, sig) is True,
+              "agg_verify_on_device rejected a valid quorum certificate")
+        i = rng.randrange(COMMITTEE)
+        check(D.verify_on_device(pks[i], payload, g2.mul(h, sks[i])) is True,
+              "verify_on_device rejected a valid signature")
+    native = prof.stage_summary()["hash_to_g2"]
+    os.environ["HOST_BLS"] = "bigint"
+    try:
+        with prof.stage("hash_to_g2 pure Python"):
+            check(HC.hash_to_g2(payload) == h,
+                  "the pure-Python hash_to_g2 differs from the native")
+    finally:
+        del os.environ["HOST_BLS"]
+    python = prof.stage_summary()["hash_to_g2 pure Python"]
+    prof.reset()
+    log(f"[{card}] agg_verify_on_device and verify_on_device from payload "
+        f"bytes: "
+        f"valid True; hash_to_g2 native {1e3 * native['sum_s'] / native['count']:.3f} "
+        f"ms a payload ({native['count']} calls), pure Python "
+        f"{1e3 * python['sum_s']:.3f} ms (1 call)")
+    node_clean("the entry points from payload bytes")
+
+    # one injected dispatch fault: the host path answers, counted
+    FI.reset()
+    FI.arm("device.dispatch", times=1)
+    try:
+        ok = D.agg_verify_hashed_on_device(table, bits, h, sig)
+    finally:
+        FI.reset()
+    check(ok is True, "the fallback's verdict on a valid check is wrong")
+    check(D.COUNTERS["ref_fallback"] == 1,
+          f"{D.COUNTERS['ref_fallback']} fallbacks, not 1")
+    check(D.BREAKER._failures == 1 and D.BREAKER.state == "closed",
+          "the breaker did not record exactly one failure")
+    log("fault at device.dispatch: verdict right, 1 host fallback counted, "
+        "1 breaker failure")
+    D.COUNTERS["ref_fallback"] = 0
+    D.BREAKER.record_success()
+    node_clean("after the fault phase")
+    # any other failure of a dispatch on the card raises, never the host
+    host = []
+
+    def refused():
+        raise RuntimeError("a wrapper refused its tensors")
+    try:
+        D._guarded("verify", refused, lambda: host.append(1),
+                   device=table.device)
+        check(False, "a failing dispatch on the card returned")
+    except D.DeviceError:
+        pass
+    check(not host and D.COUNTERS["ref_fallback"] == 0,
+          "a failing dispatch on the card was answered by the host")
+    D.BREAKER.record_success()
+    node_clean("after a failing dispatch on the card")
+    check(D.agg_verify_hashed_on_device(table, flipped, h, sig) is False,
+          "a forged quorum check accepted after the fault phase")
+    node_clean("the check after the fault phase")
+    log(f"[{card}] node phase took {time.perf_counter() - started:.3f} s")
+    return {"flushes": dict(by_kind), "fill": (items, slots),
+            "median_wait_ms": {k: (None if w is None else 1e3 * w, n)
+                               for k, (w, n) in waits.items()},
+            "qc_ms": qc_ms, "launches": path,
+            "hash_to_g2_ms": {
+                "native": 1e3 * native["sum_s"] / native["count"],
+                "python": 1e3 * python["sum_s"]}}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1673)
@@ -1718,10 +2060,21 @@ def main(argv=None):
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
+    # the native host library (g++) builds beside the kernels (nvcc)
+    from harmony_tpu_torch.ref import native as NB
+    native_s = []
+    native = threading.Thread(target=lambda: native_s.append(
+        (NB.available(), time.perf_counter() - t0)))
+    native.start()
     _build.build()
     log(f"built {_build.library_path().name} from "
         f"{', '.join(src.name for src in _build.SOURCES)} in "
         f"{time.perf_counter() - t0:.3f} s")
+    native.join()
+    check(native_s and native_s[0][0], "the native host library did not "
+          "build or load")
+    log(f"built {NB.library_path().name} from {NB.SOURCE.name} (g++) in "
+        f"{native_s[0][1]:.3f} s")
     ptxas = ptxas_report()
     sass = sass_sizes()
     for kernel, line in ptxas.items():
@@ -1753,6 +2106,7 @@ def main(argv=None):
     for module in wrappers().values():
         module.LAUNCHES = 0
     _, entry_calls = slice_phase(args.seed)
+    node_clean("the slice phase")
     path = launches()
     for name in PATH_KERNELS:
         check(path[name] > 0, f"the main path never launched the {name} "
@@ -1761,6 +2115,11 @@ def main(argv=None):
         + " launches")
     gt_phase(args.seed)
     profile_phase(args.seed, entry_calls)
+    node_clean("the profile phase")
+    # the node's verification layer: its launch counts start from zero
+    node = node_phase(args.seed)
+    log("node path: " + ", ".join(f"{n} {name}" for name, n
+                                  in node["launches"].items()) + " launches")
 
     def entry(name, source, replaces, op, shape, described, kept):
         t = timings[op][shape]

@@ -1,10 +1,11 @@
-"""harmony_tpu_torch: the BLS12-381 quorum-verify path of harmony_tpu,
-ported to PyTorch, with its Fp multiply as a hand-written CUDA kernel for
+"""harmony_tpu_torch: the BLS12-381 verification path of harmony_tpu,
+ported to PyTorch, with its arithmetic in hand-written CUDA kernels for
 NVIDIA Hopper.
 
-It mirrors harmony_tpu's module paths and public names (``ops/fp.py``,
-``ops/towers.py``, ``ops/curve.py``, ``ops/pairing.py``, ``ops/bls.py``,
-``device.py``) and its tensor layout, so that each module can be held
-against its JAX counterpart bit for bit.  It imports torch and numpy and
-nothing of JAX or of harmony_tpu.
+It mirrors harmony_tpu's module paths and public names (``ops/``,
+``device.py``, the host path ``ref/``, the node's verification layer
+``bls.py``, ``consensus/mask.py`` and ``sched/``, and the support modules
+they need) and its tensor layout, so that each module can be held
+against its JAX counterpart.  It imports torch and numpy and nothing of
+JAX or of harmony_tpu.
 """

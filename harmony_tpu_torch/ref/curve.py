@@ -1,18 +1,22 @@
-"""Affine group law on BLS12-381's G1 and G2, over bigints.
+"""Affine group law on BLS12-381's G1, G2 and E(Fp12), over bigints.
 
 Points are ``(x, y)`` tuples in the respective field, with ``None`` as the
-point at infinity.  Both curves share a = 0 short-Weierstrass form:
+point at infinity.  All three curves share a = 0 short-Weierstrass form:
 
     E  / Fp  : y^2 = x^3 + 4            (G1)
     E' / Fp2 : y^2 = x^3 + 4 (u + 1)    (G2, M-twist)
+    E  / Fp12: y^2 = x^3 + 4            (untwist target for pairing)
 
-The port's host side: it builds committee keys and signatures and clears
-the G2 cofactor of hashed payloads (hash_to_curve.py).  The batched group
-law runs on tensors in ops/curve.py.
+Mirrors the reference's use of herumi G1/G2 ops (PublicKey.Add/Sub,
+Sign.Add — reference: crypto/bls/mask.go:113-153, consensus/quorum/
+quorum.go:164-196).  The port's own copy: it builds committee keys and
+signatures, clears the G2 cofactor of hashed payloads (hash_to_curve.py)
+and serves the host pairing (pairing.py); the batched group law runs on
+tensors in ops/curve.py.
 """
 
 from . import fields as F
-from .params import B_G1, G1_X, G1_Y, G2_X, G2_Y, H2, P, XI
+from .params import B_G1, G1_X, G1_Y, G2_X, G2_Y, H1, H2, P, R_ORDER, XI
 
 
 class CurveOps:
@@ -80,6 +84,8 @@ class CurveOps:
         return acc
 
 
+# --- concrete curves -------------------------------------------------------
+
 g1 = CurveOps(
     add=F.fp_add,
     sub=F.fp_sub,
@@ -102,9 +108,62 @@ g2 = CurveOps(
     b=F.fp2_scalar(XI, B_G1),  # 4 (u + 1)
 )
 
+e12 = CurveOps(
+    add=F.fp12_add,
+    sub=F.fp12_sub,
+    mul=F.fp12_mul,
+    inv=F.fp12_inv,
+    neg=lambda a: F.fp12_sub(F.FP12_ZERO, a),
+    zero=F.FP12_ZERO,
+    one=F.FP12_ONE,
+    b=F.fp_to_fp12(B_G1),
+)
+
 G1_GEN = (G1_X, G1_Y)
 G2_GEN = (G2_X, G2_Y)
 
 
+# --- untwist E'(Fp2) -> E(Fp12) -------------------------------------------
+# psi(x, y) = (x / w^2, y / w^3); with w^6 = xi this maps the M-twist onto
+# E(Fp12): y^2 = x^3 + 4.  Precompute the two inverse powers of w once.
+
+_W2_INV = F.fp12_inv(F.fp12_mul(F.FP12_W, F.FP12_W))
+_W3_INV = F.fp12_inv(F.fp12_mul(F.fp12_mul(F.FP12_W, F.FP12_W), F.FP12_W))
+
+
+def untwist(q):
+    """Map a G2 (twist) point into E(Fp12)."""
+    if q is None:
+        return None
+    x = F.fp12_mul(F.fp2_to_fp12(q[0]), _W2_INV)
+    y = F.fp12_mul(F.fp2_to_fp12(q[1]), _W3_INV)
+    return (x, y)
+
+
+def g1_embed(p):
+    """Embed a G1 point into E(Fp12) coordinate-wise."""
+    if p is None:
+        return None
+    return (F.fp_to_fp12(p[0]), F.fp_to_fp12(p[1]))
+
+
+def clear_cofactor_g1(pt):
+    return g1.mul(pt, H1)
+
+
 def clear_cofactor_g2(pt):
     return g2.mul(pt, H2)
+
+
+__all__ = [
+    "g1",
+    "g2",
+    "e12",
+    "G1_GEN",
+    "G2_GEN",
+    "untwist",
+    "g1_embed",
+    "clear_cofactor_g1",
+    "clear_cofactor_g2",
+    "R_ORDER",
+]

@@ -1,4 +1,4 @@
-"""Deterministic hash-to-G2 for BLS signatures, over bigints.
+"""Deterministic hash-to-G2 for BLS signatures.
 
 The same map as the JAX package's host side, so both packages verify the
 same signatures:
@@ -8,15 +8,19 @@ same signatures:
         if x^3 + 4(u+1) is a square: y = sqrt, pick lexicographically-even y
         clear the G2 cofactor; if non-infinity, done
 
-Pure Python: about half a second per payload.  The branchy search stays
-on the host; only the curve and pairing arithmetic runs on the device.
+The branchy search stays on the host; only the curve and pairing
+arithmetic runs on the device.  Two branches give the same point: the
+native library (ref/native.py: ``g2_map_tai`` for each try, ``g2_mul`` by
+the cofactor) when it loads, and pure Python (about half a second per
+payload) otherwise.
 """
 
 import hashlib
 
 from . import fields as F
+from . import native as NB
 from .curve import clear_cofactor_g2, g2
-from .params import P
+from .params import H2, P
 
 _DST = b"HARMONY-TPU-BLS12381G2-TAI-SHA256-V1"
 
@@ -33,8 +37,14 @@ def map_to_twist(msg: bytes):
 
     Returns an E'(Fp2) point NOT yet in the r-torsion subgroup.
     """
+    native = NB.available()
     for ctr in range(256):
         x = (_hash_to_fp(msg, ctr, 0), _hash_to_fp(msg, ctr, 1))
+        if native:
+            pt = NB.g2_map_tai(x)  # same sqrt + canonical-y conventions
+            if pt is not None:
+                return pt
+            continue
         rhs = F.fp2_add(F.fp2_mul(F.fp2_sqr(x), x), g2.b)
         y = F.fp2_sqrt(rhs)
         if y is None:
@@ -49,7 +59,11 @@ def map_to_twist(msg: bytes):
 
 def hash_to_g2(msg: bytes):
     """Full hash-to-G2: map to the twist, then clear the cofactor."""
-    pt = clear_cofactor_g2(map_to_twist(msg))
+    tw = map_to_twist(msg)
+    if NB.available():
+        pt = NB.g2_mul(tw, H2)
+    else:
+        pt = clear_cofactor_g2(tw)
     if pt is None:  # astronomically unlikely (prob 1/r)
         raise ValueError("hash_to_g2 produced infinity")
     return pt
