@@ -47,7 +47,24 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    twins off and the native host library loaded; after every phase
    through an entry point, no check may have fallen back to the host,
    none may have been shed and the breaker must be closed;
-6. prints a JSON line describing each kernel, then, last,
+6. drives the node's consumers of those checks (consumers_phase), at
+   mainnet width with keys from --seed: the chain engine's replay of 64
+   headers (16 distinct, each 4 times, one forged, one below quorum),
+   whose verdicts must be the host reference's, a second call of the same
+   batch (only the forged repeats checked again), the verified ones from
+   the cache (no launch) and one header's check on CONSENSUS; an FBFT
+   round of 10 nodes of 20 keys (every vote and proof checked, a tampered
+   proof rejected); a NEWVIEW that embeds the round's PREPARED proof (one
+   g1_masked_sum launch per aggregate_public); Handel's check of an honest
+   and a forged partial; and the sidecar server with the port's client
+   on each route: through the scheduler (a QC of 150 of 200 bits and a
+   wrong bitmap, 8 single checks with one wrong signer, the engine's
+   replay through it), under the exec lock with the scheduler disarmed,
+   and the direct ops/bls.py branch with the device path off.  Every
+   scheduler flush must launch each kernel of its path exactly once, and
+   the routes outside the scheduler their exact launches; node_clean
+   after every part;
+7. prints a JSON line describing each kernel, then, last,
    {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line.  Without CUDA,
@@ -1734,6 +1751,40 @@ def node_clean(what):
           f"{what}: the device breaker is {D.BREAKER.state}")
 
 
+def counted_scheduler():
+    """A fresh global scheduler whose flushes record their launches, by
+    kind: (kind, checks, launches of each kernel).  Counted on the flush
+    thread, the only one that launches while the lanes run."""
+    from harmony_tpu_torch import sched
+
+    sched.reset()
+    sched.configure(device="cuda")
+    s = sched.scheduler()
+    flushes = []
+    for kind, attr in (("agg", "_run_agg"), ("single", "_run_single")):
+        run = getattr(s, attr)
+
+        def counted(batch, kind=kind, run=run):
+            before = launches()
+            out = run(batch)
+            flushes.append((kind, len(batch), since(before)))
+            return out
+        setattr(s, attr, counted)
+    return s, flushes
+
+
+def since(before):
+    return {k: n - before[k] for k, n in launches().items()}
+
+
+def check_flushes(flushes, what):
+    """Every flush launches each kernel of its path exactly once."""
+    for kind, n, made in flushes:
+        want = {k: int(k in FLUSH_LAUNCHES[kind]) for k in made}
+        check(made == want, f"{what}: a {kind} flush of {n} checks "
+              f"launched {made}")
+
+
 def node_phase(seed):
     """The node's verification layer on the card: the scheduler's three
     lanes fed from three threads at once, Mask.aggregate_public, the
@@ -1816,20 +1867,7 @@ def node_phase(seed):
         check(RB.verify_hashed(pk, hk, sk_sig) is want,
               "host verdict of a single check differs from its construction")
 
-    sched.reset()
-    sched.configure(device="cuda")
-    s = sched.scheduler()
-    flushes = []
-    for kind, attr in (("agg", "_run_agg"), ("single", "_run_single")):
-        run = getattr(s, attr)
-
-        def counted(batch, kind=kind, run=run):
-            before = launches()
-            out = run(batch)
-            flushes.append((kind, len(batch), {
-                k: n - before[k] for k, n in launches().items()}))
-            return out
-        setattr(s, attr, counted)
+    s, flushes = counted_scheduler()
     # each request's enqueue-to-dispatch wait, read where the scheduler
     # observes it into its histogram
     lane_waits = {name: [] for name in LANE_NAMES.values()}
@@ -1894,9 +1932,7 @@ def node_phase(seed):
     bad[1] = (bad[1][0], pops[2][1])
     check(B.verify_proofs_of_possession(bad) is False,
           "a proof of another key accepted")
-    for kind, n, made in flushes:
-        want = {k: int(k in FLUSH_LAUNCHES[kind]) for k in made}
-        check(made == want, f"a {kind} flush of {n} checks launched {made}")
+    check_flushes(flushes, "the node lanes")
     for name in PATH_KERNELS:
         check(path[name] > 0, f"the node path never launched {name}")
     by_kind = collections.Counter(kind for kind, _, _ in lane_flushes)
@@ -2036,6 +2072,428 @@ def node_phase(seed):
                 "python": 1e3 * python["sum_s"]}}
 
 
+# the consumers phase: Harmony mainnet's 200 slots as 10 nodes of 20 keys
+# each, so that every vote is a multi-key aggregate, as validators run
+# them; 7 of the nodes (140 keys, above the 134 of a quorum) vote in the
+# view change.  Replay headers sign with at least 134 keys; one header of
+# the batch is signed by 120 (below quorum) and one carries another
+# header's signature (forged).
+NODES, KEYS_PER_NODE, VIEW_CHANGE_VOTERS = 10, 20, 7
+EPOCH = 1673
+BELOW_QUORUM, FORGED_AT, BELOW_AT = 120, 5, 9
+SIDECAR_ITEMS = 8
+
+
+@contextlib.contextmanager
+def recorded_lanes():
+    """The lane of every check a consumer hands to the scheduler's
+    wrappers (``sched.agg_verify``, ``agg_verify_many``,
+    ``verify_single``), as (wrapper, lane) pairs."""
+    from harmony_tpu_torch import sched
+
+    lanes = []
+    saved = {name: getattr(sched, name) for name in
+             ("agg_verify", "agg_verify_many", "verify_single")}
+
+    def recorder(name, fn):
+        def call(*a, lane, **k):
+            lanes.append((name, lane))
+            return fn(*a, lane=lane, **k)
+        return call
+    for name, fn in saved.items():
+        setattr(sched, name, recorder(name, fn))
+    try:
+        yield lanes
+    finally:
+        for name, fn in saved.items():
+            setattr(sched, name, fn)
+
+
+def consumers_phase(seed):
+    """The node's consumers of the device checks on the card, at Harmony
+    mainnet width (200 slots, bucket 256): the chain engine's replay and
+    header checks, an FBFT round, view change, Handel's partial checks and
+    the sidecar server on each of its routes.  Launch counts start from
+    zero; every flush is held to its exact launches."""
+    from harmony_tpu_torch import bls as B
+    from harmony_tpu_torch import device as D
+    from harmony_tpu_torch import multibls as MB
+    from harmony_tpu_torch import sched
+    from harmony_tpu_torch.chain import engine as ENG
+    from harmony_tpu_torch.chain.header import Header
+    from harmony_tpu_torch.consensus import aggregation as AGG
+    from harmony_tpu_torch.consensus import fbft as FB
+    from harmony_tpu_torch.consensus import quorum as Q
+    from harmony_tpu_torch.consensus import view_change as VC
+    from harmony_tpu_torch.consensus.mask import bits_from_bytes
+    from harmony_tpu_torch.consensus.messages import FBFTMessage, MsgType
+    from harmony_tpu_torch.consensus.signature import \
+        construct_commit_payload, prepare_payload
+    from harmony_tpu_torch.ref import bls as RB
+    from harmony_tpu_torch.ref.hash_to_curve import hash_to_g2
+    from harmony_tpu_torch.ref.keccak import keccak256
+    from harmony_tpu_torch.ref.params import R_ORDER
+    from harmony_tpu_torch.sidecar.client import SidecarClient
+    from harmony_tpu_torch.sidecar.server import SidecarServer
+
+    check(D._FORCED is None and D.device_enabled(),
+          "device_enabled() is not True by AUTO on the card")
+    node_clean("before the consumers phase")
+    started = time.perf_counter()
+    card = card_line()
+    rng = random.Random(seed + 5)
+    keys = [B.PrivateKey(rng.randrange(1, R_ORDER)) for _ in range(COMMITTEE)]
+    committee = [k.pub.bytes for k in keys]
+    s, flushes = counted_scheduler()
+    for module in wrappers().values():
+        module.LAUNCHES = 0
+    parts = {}
+
+    def bitmap(signers):
+        out = bytearray((COMMITTEE + 7) >> 3)
+        for i in signers:
+            out[i >> 3] |= 1 << (i & 7)
+        return bytes(out)
+
+    def quorum_signers():
+        return rng.sample(range(COMMITTEE), rng.randrange(134, COMMITTEE + 1))
+
+    def signed(payload, signers):
+        """The signers' aggregate signature: one signature by the sum of
+        their secret keys."""
+        return RB.sig_to_bytes(RB.sign(
+            sum(keys[i].scalar for i in signers) % R_ORDER, payload))
+
+    def sign_header(header, signers):
+        return signed(construct_commit_payload(
+            header.hash(), header.block_num, header.view_id, True),
+            signers), bitmap(signers)
+
+    def part(name, fn):
+        """Run one part; its launches and time, and node_clean after it."""
+        before, t0 = launches(), time.perf_counter()
+        out = fn()
+        parts[name] = (since(before), time.perf_counter() - t0)
+        node_clean(name)
+        return out
+
+    # -- replay through the engine: 16 headers, each 4 times ------------------
+    def provider(shard, epoch):
+        return ENG.EpochContext(committee)
+
+    headers, prev = [], bytes(32)
+    for j in range(REPLAY_DISTINCT):
+        h = Header(shard_id=0, block_num=1000 + j, epoch=EPOCH,
+                   view_id=1000 + j, parent_hash=prev)
+        headers.append(h)
+        prev = h.hash()
+    distinct = []
+    for j, h in enumerate(headers):
+        sig, bm = sign_header(h, range(BELOW_QUORUM) if j == BELOW_AT
+                              else quorum_signers())
+        distinct.append([h, sig, bm])
+    distinct[FORGED_AT][1] = distinct[FORGED_AT - 1][1]
+    items = [tuple(t) for t in distinct for _ in range(REPLAY_REPEAT)]
+    want = [j not in (FORGED_AT, BELOW_AT) for j in range(REPLAY_DISTINCT)
+            for _ in range(REPLAY_REPEAT)]
+    check(ENG.Engine(provider, device=False).verify_headers_batch(items)
+          == want, "the host reference's replay verdicts differ from the "
+          "construction")
+    engine = ENG.Engine(provider)
+    check(engine.device is True and ENG.verify_buckets() ==
+          ENG.VERIFY_BUCKETS_GPU, "the engine is not on the device path")
+    replay_ms = {}
+
+    def replay():
+        del flushes[:]
+        with recorded_lanes() as lanes:
+            got, replay_ms["first"], _, _ = timed(
+                engine.verify_headers_batch, items)
+        check(got == want, f"replay verdicts {got}")
+        first = [f for f in flushes if f[0] == "agg"]
+        check(sum(n for _, n, _ in first) == REPLAY_DISTINCT
+              * REPLAY_REPEAT - REPLAY_REPEAT and len(first) == len(flushes),
+              f"the first replay dispatched {flushes}, not the 60 checks of "
+              f"the headers at quorum (repeats included)")
+        check(lanes == [("agg_verify_many", sched.Lane.SYNC)],
+              f"the replay's lanes: {lanes}")
+        check_flushes(flushes, "the first replay")
+        n_first = len(flushes)
+        got, replay_ms["again"], _, _ = timed(engine.verify_headers_batch,
+                                              items)
+        check(got == want, "the second replay's verdicts changed")
+        check(sum(n for _, n, _ in flushes[n_first:]) == REPLAY_REPEAT,
+              f"the second replay dispatched {flushes[n_first:]}, not the "
+              f"forged header's {REPLAY_REPEAT} repeats")
+        check_flushes(flushes, "the second replay")
+        kept = [t for j, t in enumerate(items)
+                if j // REPLAY_REPEAT != FORGED_AT]
+        before, n_flushes = launches(), len(flushes)
+        got, replay_ms["cached"], _, _ = timed(engine.verify_headers_batch,
+                                               kept)
+        check(got == [w for j, w in enumerate(want)
+                      if j // REPLAY_REPEAT != FORGED_AT]
+              and not any(since(before).values())
+              and len(flushes) == n_flushes,
+              "the cached replay launched or changed its verdicts")
+        # the same 64 checks straight into the entry point
+        table = engine.epoch_context(0, EPOCH).committee_table()
+        bits = [bits_from_bytes(bm, COMMITTEE) for _, _, bm in items]
+        hs = [hash_to_g2(construct_commit_payload(
+            h.hash(), h.block_num, h.view_id, True)) for h, _, _ in items]
+        sigs = [RB.sig_from_bytes(sig) for _, sig, _ in items]
+        got, replay_ms["direct"], _, _ = timed(
+            D.agg_verify_batch_on_device, table, bits, hs, sigs)
+        check(got == [j // REPLAY_REPEAT != FORGED_AT for j in
+                      range(len(items))],
+              "the direct batch's pairing verdicts differ from the "
+              "construction")
+        # one header's check on the consensus lane
+        h = Header(shard_id=0, block_num=2000, epoch=EPOCH, view_id=2000,
+                   parent_hash=prev)
+        sig, bm = sign_header(h, quorum_signers())
+        n_flushes = len(flushes)
+        with recorded_lanes() as lanes:
+            ok = engine.verify_header_signature(h, sig, bm,
+                                                lane=sched.Lane.CONSENSUS)
+        check(ok is True and lanes == [("agg_verify",
+                                        sched.Lane.CONSENSUS)]
+              and len(flushes) == n_flushes + 1,
+              f"verify_header_signature on CONSENSUS: {ok}, {lanes}")
+        check_flushes(flushes, "the header check")
+    part("replay through the engine", replay)
+    log(f"[{card}] engine replay of {len(items)} headers ({REPLAY_DISTINCT} "
+        f"distinct, each {REPLAY_REPEAT} times; one forged, one below "
+        f"quorum): first call {replay_ms['first']:.3f} ms, the same batch "
+        f"again {replay_ms['again']:.3f} ms (the forged repeats checked "
+        f"again), the {len(items) - REPLAY_REPEAT} verified from the cache "
+        f"{replay_ms['cached']:.3f} ms (no launch); direct "
+        f"agg_verify_batch_on_device of the same {len(items)} "
+        f"{replay_ms['direct']:.3f} ms; verdicts as the host reference's")
+
+    # -- an FBFT round: 10 nodes of 20 keys ---------------------------------
+    keysets = [MB.PrivateKeys.from_keys(
+        keys[n * KEYS_PER_NODE:(n + 1) * KEYS_PER_NODE]) for n in range(NODES)]
+    cfg = FB.RoundConfig(committee=committee, block_num=2001, view_id=2001)
+
+    def decider():
+        return Q.Decider(Q.Policy.UNIFORM, committee)
+
+    t0 = time.perf_counter()
+    leader = FB.Leader(keysets[0], cfg, decider())
+    validators = [FB.Validator(ks, cfg, decider()) for ks in keysets[1:]]
+    own = FB.Validator(leader.keys, cfg, leader.decider)
+    built_s = time.perf_counter() - t0
+    block = b"harmony shard 0 block 2001 seed %d" % seed
+    block_hash = keccak256(block)
+    round_out = {}
+
+    def fbft():
+        t0 = time.perf_counter()
+        with recorded_lanes() as lanes:
+            announce = leader.announce(block_hash, block)
+            prepares = [v.on_announce(announce) for v in validators]
+            votes = [leader.on_prepare(p) for p in prepares]
+            prepared = leader.try_prepared(block_hash)
+            commits = [v.on_prepared(prepared) for v in validators + [own]]
+            votes += [leader.on_commit(c) for c in commits]
+            committed = leader.try_committed(block_hash)
+            accepted = [v.on_committed(committed) for v in validators]
+        round_out["s"] = time.perf_counter() - t0
+        check(all(votes) and len(votes) == 2 * NODES - 1,
+              f"the leader rejected a vote: {votes}")
+        check(prepared.payload[96:] == b"\xff" * 25 and all(
+            c is not None for c in commits) and all(accepted),
+              "the round did not commit with all 200 slots")
+        tampered = FBFTMessage(
+            msg_type=MsgType.COMMITTED, view_id=cfg.view_id,
+            block_num=cfg.block_num, block_hash=keccak256(b"other block"),
+            sender_pubkeys=committed.sender_pubkeys,
+            payload=committed.payload)
+        with recorded_lanes() as more:
+            check(validators[0].on_committed(tampered) is False,
+                  "a tampered proof was accepted")
+        lanes += more
+        aggs = [lane for name, lane in lanes if name == "agg_verify"]
+        singles = [lane for name, lane in lanes if name == "verify_single"]
+        check(aggs == [sched.Lane.CONSENSUS] * (2 * (NODES - 1) + 2)
+              and singles == [sched.Lane.CONSENSUS] * (2 * NODES - 1)
+              and len(lanes) == len(aggs) + len(singles),
+              f"the round's checks and lanes: {lanes}")
+        check_flushes(flushes, "the FBFT round")
+        round_out["prepared"] = prepared
+    part("the FBFT round", fbft)
+    prepared = round_out["prepared"]
+    log(f"[{card}] FBFT round, {NODES} nodes of {KEYS_PER_NODE} keys: "
+        f"announce to every validator's COMMITTED check "
+        f"{round_out['s']:.3f} s ({NODES - 1} prepare and {NODES} commit "
+        f"votes, each one single check; {2 * (NODES - 1) + 1} proof checks, "
+        f"each one sched.agg_verify on CONSENSUS; the nodes built in "
+        f"{built_s:.3f} s); a tampered proof rejected")
+
+    # -- view change: NEWVIEW with the round's PREPARED proof embedded ------
+    view_id = cfg.view_id + 1
+
+    def view_change():
+        coll = VC.ViewChangeCollector(committee, decider(), view_id)
+        voters = keysets[:VIEW_CHANGE_VOTERS]
+        msgs = [VC.construct_viewchange(ks, view_id, cfg.block_num,
+                                        block_hash, prepared.payload)
+                for ks in voters[:4]]
+        msgs += [VC.construct_viewchange(ks, view_id, cfg.block_num)
+                 for ks in voters[4:]]
+        check(all(coll.on_viewchange(m) for m in msgs),
+              "a view-change vote was rejected")
+        nv = coll.try_new_view(cfg.block_num, keysets[1])
+        check(nv is not None and nv.m2_agg_sig and nv.m1_payload ==
+              VC.m1_payload(block_hash, prepared.payload),
+              "no NEWVIEW with the PREPARED proof and NIL votes formed")
+        before, sums = launches(), D.COUNTERS["masked_pubkey_sum"]
+        with recorded_lanes() as lanes:
+            ok = VC.verify_new_view(nv, committee, decider())
+        made, sums = since(before), D.COUNTERS["masked_pubkey_sum"] - sums
+        check(ok is True, "a valid NEWVIEW was rejected")
+        check(made["g1_masked_sum"] == sums == 3,
+              f"NEWVIEW's three aggregate_public calls (M3, NIL, the "
+              f"PREPARED proof) made {sums} sums and {made['g1_masked_sum']} "
+              f"g1_masked_sum launches")
+        check(lanes == [("verify_single", sched.Lane.CONSENSUS)] * 3,
+              f"NEWVIEW's checks: {lanes}")
+        nv.view_id += 1
+        check(VC.verify_new_view(nv, committee, decider()) is False,
+              "a NEWVIEW for another view was accepted")
+        check_flushes(flushes, "view change")
+    part("view change", view_change)
+
+    # -- Handel: one honest and one forged partial --------------------------
+    def handel():
+        agg = AGG.Aggregator(
+            committee, list(range(KEYS_PER_NODE)),
+            quorum_check=decider().is_quorum_achieved_by_mask,
+            emit=lambda *a: None, committee_points=leader.committee_points)
+        payload = prepare_payload(block_hash)
+        slots = range(KEYS_PER_NODE, 2 * KEYS_PER_NODE)
+        bits = sum(1 << i for i in slots)
+        honest = keysets[1].sign_hash_aggregated(payload).bytes
+        forged = keysets[1].sign_hash_aggregated(keccak256(b"x")).bytes
+        with recorded_lanes() as lanes:
+            good = agg._verify(payload, bits, honest)
+            bad = agg._verify(payload, bits, forged)
+        check(good is not None and bad is None,
+              f"Handel: honest partial {good}, forged {bad}")
+        check(lanes == [("agg_verify", sched.Lane.CONSENSUS)] * 2,
+              f"Handel's checks: {lanes}")
+        check_flushes(flushes, "Handel")
+    part("Handel", handel)
+
+    # -- the sidecar server -------------------------------------------------
+    server = SidecarServer().start()
+    client = SidecarClient(server.address)
+    sidecar_ms = {}
+    qc_signers = rng.sample(range(COMMITTEE), QUORUM)
+    qc_payload = b"harmony shard 0 commit 2002 seed %d" % seed
+    qc_sig = signed(qc_payload, qc_signers)
+    qc_bm = bitmap(qc_signers)
+    wrong_bm = bitmap(qc_signers[1:])
+    batch, batch_want = [], []
+    for k in range(SIDECAR_ITEMS):
+        i = rng.randrange(COMMITTEE)
+        msg = b"harmony tx %d seed %d" % (k, seed)
+        signer = (i + 1) % COMMITTEE if k == 3 else i
+        batch.append((committee[i], msg, keys[signer].sign_hash(msg).bytes))
+        batch_want.append(k != 3)
+
+    def sidecar():
+        client.set_committee(EPOCH, 0, committee)
+        with recorded_lanes() as lanes:
+            got = [client.agg_verify(EPOCH, 0, qc_payload, bm, qc_sig)
+                   for bm in (qc_bm, wrong_bm)]
+            check(got == [True, False], f"sidecar QC checks: {got}")
+            check(client.verify_batch(batch) == batch_want,
+                  "sidecar verify_batch verdicts")
+        check(lanes == [("agg_verify", sched.Lane.CONSENSUS)] * 2,
+              f"the sidecar's quorum checks: {lanes}")
+        check_flushes(flushes, "the sidecar's scheduled route")
+        sidecar_engine = ENG.Engine(provider, backend=client)
+        check(sidecar_engine.verify_headers_batch(items) == want
+              and sidecar_engine.verify_headers_batch(items) == want,
+              "the replay through the sidecar differs from the host's")
+        check_flushes(flushes, "the replay through the sidecar")
+    part("the sidecar, scheduled", sidecar)
+
+    def exec_lock():
+        sched.configure(enabled=False)
+        try:
+            ok = client.agg_verify(EPOCH, 0, qc_payload, qc_bm, qc_sig)
+        finally:
+            sched.configure(enabled=True)
+        check(ok is True, "the exec-lock route rejected a valid QC")
+    part("the sidecar, exec lock", exec_lock)
+
+    def direct():
+        D.use_device(False)
+        try:
+            check(not D.device_enabled() and server._accelerated(),
+                  "the direct branch is not the route")
+            ok = client.agg_verify(EPOCH, 0, qc_payload, qc_bm, qc_sig)
+            bad = client.agg_verify(EPOCH, 0, qc_payload, wrong_bm, qc_sig)
+            verdicts = client.verify_batch(batch)
+        finally:
+            D.use_device(None)
+        check(ok is True and bad is False and verdicts == batch_want,
+              f"the direct branch: {ok}, {bad}, {verdicts}")
+    part("the sidecar, direct", direct)
+    for name, agg_checks, singles in (
+            ("the sidecar, exec lock", 1, 0), ("the sidecar, direct", 2, 1)):
+        made = parts[name][0]
+        check(made == {k: (agg_checks if k == "g1_masked_sum" else
+                           agg_checks + singles) if k in PATH_KERNELS else 0
+                       for k in made},
+              f"{name}: launched {made}")
+    check(all(parts["the sidecar, scheduled"][0][k] > 0
+              for k in PATH_KERNELS), "the scheduled sidecar route missed a "
+          "kernel")
+
+    # a QC check's round trip through the sidecar against the direct call
+    table = server._get_table(EPOCH, 0).dv_table()
+    qc_bits = bits_from_bytes(qc_bm, COMMITTEE)
+    qc_pt = RB.sig_from_bytes(qc_sig)
+
+    def through_the_sidecar():
+        return client.agg_verify(EPOCH, 0, qc_payload, qc_bm, qc_sig)
+
+    def direct_call():
+        return D.agg_verify_on_device(table, qc_bits, qc_payload, qc_pt)
+
+    sidecar_ms["sidecar"] = median_ms(through_the_sidecar, want=True)
+    sidecar_ms["direct"] = median_ms(direct_call, want=True)
+    client.close()
+    server.stop()
+    node_clean("the sidecar's round trips")
+    sched.reset()
+    check_flushes(flushes, "the consumers phase")
+    total = launches()
+    for name in PATH_KERNELS:
+        check(total[name] > 0, f"the consumers phase never launched {name}")
+    seconds = time.perf_counter() - started
+    log(f"[{card}] sidecar: QC check round trip {sidecar_ms['sidecar'][0]:.3f}"
+        f" ms (median of {MEDIAN_CALLS}; {sidecar_ms['sidecar'][1]:.3f} to "
+        f"{sidecar_ms['sidecar'][2]:.3f}) against the direct "
+        f"agg_verify_on_device {sidecar_ms['direct'][0]:.3f} ms "
+        f"({sidecar_ms['direct'][1]:.3f} to {sidecar_ms['direct'][2]:.3f})")
+    for name, (made, secs) in parts.items():
+        log(f"consumers, {name}: {secs:.3f} s, launches " + ", ".join(
+            f"{n} {k}" for k, n in made.items() if n))
+    by_kind = collections.Counter(kind for kind, _, _ in flushes)
+    log(f"[{card}] consumers phase took {seconds:.3f} s; "
+        f"{by_kind['agg']} aggregate and {by_kind['single']} single-check "
+        "flushes, each launching its path's kernels once; launches " +
+        ", ".join(f"{n} {k}" for k, n in total.items()))
+    return {"launches": total, "seconds": seconds, "replay_ms": replay_ms,
+            "round_s": round_out["s"], "sidecar_ms": sidecar_ms,
+            "parts": {k: v[0] for k, v in parts.items()}}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1673)
@@ -2120,6 +2578,8 @@ def main(argv=None):
     node = node_phase(args.seed)
     log("node path: " + ", ".join(f"{n} {name}" for name, n
                                   in node["launches"].items()) + " launches")
+    # the consumers of the checks: their launch counts start from zero
+    consumers = consumers_phase(args.seed)
 
     def entry(name, source, replaces, op, shape, described, kept):
         t = timings[op][shape]
@@ -2129,6 +2589,7 @@ def main(argv=None):
             "source": source,
             "replaces": replaces,
             "launches": path[name],
+            "consumers_launches": consumers["launches"][name],
             "max_abs_err": stats[name]["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
