@@ -5,16 +5,17 @@
 
 Run from the root of a checkout on a machine with one CUDA card.  It
 
-1. prints the card's name and power limit and builds the eight CUDA
-   kernels (harmony_tpu_torch/csrc/mont_mul.cu, fp_addsub.cu,
-   fp12_mul.cu, fp12_cyclo_sqr.cu, miller_loop.cu, fp_inv.cu,
-   g1_masked_sum.cu and final_exp.cu, one library) from the checkout,
-   and beside them the native host library (native/bls381.cpp, g++),
-   with the build's time, each kernel's registers, stack frame, spills
-   and shared memory (ptxas) and SASS instructions (cuobjdump); the
-   kernels on plans of phases or rounds (fp12_mul, fp12_cyclo_sqr,
-   miller_loop, g1_masked_sum, final_exp) must have no stack frame and no
-   spills;
+1. prints the card's name and power limit and builds the CUDA kernels
+   (harmony_tpu_torch/csrc/mont_mul.cu, fp_addsub.cu, fp12_mul.cu,
+   fp12_cyclo_sqr.cu, miller_loop.cu, fp_inv.cu, g1_masked_sum.cu,
+   final_exp.cu, scalar_mul.cu (scalar_mul_g1 and scalar_mul_g2) and
+   g2_masked_sum.cu, one library) from the checkout, and beside them the
+   native host library (native/bls381.cpp, g++), with the build's time,
+   each kernel's registers, stack frame, spills and shared memory (ptxas)
+   and SASS instructions (cuobjdump); the kernels on plans of phases or
+   rounds (fp12_mul, fp12_cyclo_sqr, miller_loop, g1_masked_sum,
+   final_exp, scalar_mul_g1, scalar_mul_g2, g2_masked_sum) must have no
+   stack frame and no spills;
 2. holds each kernel against its plain PyTorch version on the card, bit
    for bit, at the shapes the verify path gives it and on edge cases;
    times both with the wrapper, and each kernel alone on the device
@@ -64,7 +65,19 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    scheduler flush must launch each kernel of its path exactly once, and
    the routes outside the scheduler their exact launches; node_clean
    after every part;
-7. prints a JSON line describing each kernel, then, last,
+7. holds the signing ops' kernels (scalar_mul_g1, scalar_mul_g2,
+   g2_masked_sum) against their plain versions on the card, bit for bit,
+   and times them (sign_kernels_phase, sign_timing_phase); then drives
+   the signing path through ops/bls.py with its launch counts from zero
+   (signing_phase): 256 keys derived and 256 signatures made on the
+   card, one payload's cofactor cleared, the aggregate of 150 of 200;
+   every lane, made affine on the host, equal to the native host
+   library's; the aggregate verified through agg_verify_hashed_on_device
+   against a table of the derived keys, one forged lane rejected; each
+   call held to its exact launches;
+8. drives parallel/mesh.py over a NCCL process group of world size 1
+   (mesh_phase): each sharded_* equal to the unsharded call;
+9. prints a JSON line describing each kernel, then, last,
    {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line.  Without CUDA,
@@ -117,10 +130,10 @@ INT32_OPS_PER_S = 16.75e12
 # the reduction; about 120 to form the approximations), then one
 # Montgomery product.  Per lane, g1_masked_sum reads the points and the
 # mask and writes the sum and its affine form; its products are those of
-# the lane's tree on this data (g1_tree): an add with infinity needs none,
-# an add of two finite points 16, 11 where one has Z = 1 (an affine leaf,
-# or one passed up against infinity) and 6 where both have; an add of
-# equal or opposite points needs only the 8, 4 or 0 products that find
+# the lane's tree on this data (sum_tree): an add with infinity needs
+# none, an add of two finite points 16, 11 where one has Z = 1 (an affine
+# leaf, or one passed up against infinity) and 6 where both have; an add
+# of equal or opposite points needs only the 8, 4 or 0 products that find
 # them so, and the doubling 7 (6 where Z = 1).  Then the inversion of Z
 # and 4 products for the affine form, unless the sum is infinity or still
 # has Z = 1.  Per lane, final_exp reads f and writes the result, and makes
@@ -137,6 +150,23 @@ INV_BATCH_OPS = 30 * 20 + 2 * 13 * 8 + 2 * 13 * 14 + 120
 # by the number of operands with Z = 1: 0, 1, 2
 G1_ADD_PRODUCTS = (16, 11, 6)
 G1_MATCH_PRODUCTS = (8, 4, 0)
+# The signing ops.  scalar_mul_g1 and scalar_mul_g2 read each point (384
+# and 768 B) and the bits (4 B each; once for all lanes where they are
+# shared) and write each result; their products are those of the
+# double-and-add on this data (ladder_work): none before the first set
+# bit (the accumulator is at infinity), then per bit the doubling (7 over
+# Fp, 16 over Fp2: Karatsuba products, complex squares) and, per set bit
+# after the first, the addition of the point (16 and 43, 11 and 30 where
+# the point has Z = 1).  The kernels compute both every step (constant
+# time).  g2_masked_sum reads the points (768 B) and the mask and writes
+# the sum; its products are its tree's on this data (sum_tree), counted
+# as g1_masked_sum's with the Fp2 products: an add 43, 30 and 16, finding
+# equal or opposite operands 22, 11 and 0, the doubling 16 (13 where
+# Z = 1).
+SUM_PRODUCTS = {"g1": (G1_ADD_PRODUCTS, G1_MATCH_PRODUCTS, (7, 6)),
+                "g2": ((43, 30, 16), (22, 11, 0), (16, 13))}
+LADDER_PRODUCTS = {"scalar_mul_g1": (7, (16, 11)),
+                   "scalar_mul_g2": (16, (43, 30))}
 WORK = {"mont_mul": (3 * 128, MONT_IMAD), "add": (3 * 128, 3 * 12),
         "sub": (3 * 128, 3 * 12), "neg": (2 * 128, 3 * 12),
         "fp12_mul": (3 * 12 * 128, 54 * MONT_IMAD),
@@ -256,23 +286,38 @@ def canonical_limbs(rng, shape):
 
 
 KERNELS = ("mont_mul", "fp_addsub", "fp12_mul", "fp12_cyclo_sqr",
-           "miller_loop", "fp_inv", "g1_masked_sum", "final_exp")
+           "miller_loop", "fp_inv", "g1_masked_sum", "final_exp",
+           "scalar_mul_g1", "scalar_mul_g2", "g2_masked_sum")
 
 
 def wrappers():
     """Each kernel's wrapper module, by kernel name; each counts its
-    launches in ``LAUNCHES``."""
+    launches in ``LAUNCHES`` (kernels/scalar_mul.py, a count of each of its
+    two kernels, by name)."""
     from harmony_tpu_torch.kernels import final_exp, fp12_cyclo_sqr, \
-        fp12_mul, fp_addsub, fp_inv, g1_masked_sum, miller_loop, mont_mul
+        fp12_mul, fp_addsub, fp_inv, g1_masked_sum, g2_masked_sum, \
+        miller_loop, mont_mul, scalar_mul
 
     return {"mont_mul": mont_mul, "fp_addsub": fp_addsub,
             "fp12_mul": fp12_mul, "fp12_cyclo_sqr": fp12_cyclo_sqr,
             "miller_loop": miller_loop, "fp_inv": fp_inv,
-            "g1_masked_sum": g1_masked_sum, "final_exp": final_exp}
+            "g1_masked_sum": g1_masked_sum, "final_exp": final_exp,
+            "scalar_mul_g1": scalar_mul, "scalar_mul_g2": scalar_mul,
+            "g2_masked_sum": g2_masked_sum}
 
 
 def launches():
-    return {name: m.LAUNCHES for name, m in wrappers().items()}
+    return {name: m.LAUNCHES[name] if isinstance(m.LAUNCHES, dict)
+            else m.LAUNCHES for name, m in wrappers().items()}
+
+
+def reset_launches():
+    """Every kernel's launch count to 0."""
+    for name, m in wrappers().items():
+        if isinstance(m.LAUNCHES, dict):
+            m.LAUNCHES[name] = 0
+        else:
+            m.LAUNCHES = 0
 
 
 def symbol(name):
@@ -320,17 +365,18 @@ def profiled(fn, reps, activities=("CUDA",)):
     """(key_averages(), device us per call of each hand kernel) over reps
     runs of fn() under torch.profiler.  The launch counters say how many
     launches of each hand kernel the profiler should see; on the card it
-    has been seen to drop one launch in fifty, and in about one session
-    in ten most or all of a session's kernels.  Each kernel's time per
-    call is the mean of the launches seen times the launches made; a
-    session that missed half of a kernel's launches is run again, at
-    most four times more, and then the phase fails."""
+    has been seen to drop one launch in fifty, and in one session in ten
+    to one in two most or all of a session's kernels (five sessions in a
+    row, once).  Each kernel's time per call is the mean of the launches
+    seen times the launches made; a session that missed half of a
+    kernel's launches is run again, at most nine times more, and then the
+    phase fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    attempts = 5
+    attempts = 10
     for attempt in range(1, attempts + 1):
         before = launches()
         with profile(activities=[getattr(ProfilerActivity, a)
@@ -436,14 +482,16 @@ def inv_work(limbs):
     return roofline(limbs.numel() // 32 * 2 * 128, inv_ops(limbs))
 
 
-def g1_tree(keys, bits):
+def sum_tree(keys, bits, field="g1"):
     """(Montgomery products, whether the sum has Z = 1) of one lane of the
-    masked G1 sum on these keys (host affine points, None for a pad row)
-    with Z = 1 where ``z_one`` and mask words ``bits``: the tree of
-    masked_sum run on the host, each add counted by what its operands
-    need (the table above WORK)."""
-    from harmony_tpu_torch.ref.curve import g1
+    masked sum over G1 or G2 on these keys (host affine points, None for a
+    pad row) with Z = 1 where ``z_one`` and mask words ``bits``: the tree
+    of masked_sum run on the host, each add counted by what its operands
+    need (the tables above WORK)."""
+    from harmony_tpu_torch.ref.curve import g1, g2
 
+    group = g1 if field == "g1" else g2
+    add_products, match_products, dbl_products = SUM_PRODUCTS[field]
     keys, z_one = keys
     nodes = [(k, z) if b == 1 and k is not None else (None, False)
              for k, z, b in zip(keys, z_one, bits)]
@@ -461,12 +509,12 @@ def g1_tree(keys, bits):
                 continue
             ones = p_one + q_one
             if p[0] == q[0]:  # equal or opposite: found, then doubled
-                products += G1_MATCH_PRODUCTS[ones]
+                products += match_products[ones]
                 if p[1] == q[1]:
-                    products += 6 if p_one else 7
+                    products += dbl_products[p_one]
             else:
-                products += G1_ADD_PRODUCTS[ones]
-            level.append((g1.add(p, q), False))
+                products += add_products[ones]
+            level.append((group.add(p, q), False))
         nodes = level
     return products, nodes[0][1]
 
@@ -488,7 +536,7 @@ def g1_work(points, mask, sums):
     """(ms, what bounds it) of g1_masked_sum on these inputs, whose
     Jacobian sums (from the plain version) are ``sums``: read the points
     and the mask, write each lane's sum and affine form; the products of
-    each lane's tree on this data (g1_tree), and, where the sum is finite
+    each lane's tree on this data (sum_tree), and, where the sum is finite
     without Z = 1, the inversion of its Z and 4 products."""
     keys = g1_keys(points)
     m = mask.reshape(mask.shape[0], -1).cpu().tolist()
@@ -496,7 +544,7 @@ def g1_work(points, mask, sums):
     lanes = len(m[0])
     ops = 0
     for b in range(lanes):
-        products, z_one = g1_tree(keys, [row[b] for row in m])
+        products, z_one = sum_tree(keys, [row[b] for row in m])
         ops += products * MONT_IMAD
         if not z_one and sums[b, 2].any():
             ops += inv_ops(sums[b, 2]) + 4 * MONT_IMAD
@@ -731,7 +779,8 @@ def timing_phase(seed):
 def plain_fp():
     """Within: the dispatchers of ops/fp.py, ops/towers.py,
     ops/pairing.py and ops/curve.py (with the Fp dispatchers that
-    ``curve.FP_OPS`` holds) are their plain PyTorch versions, so the plain
+    ``curve.FP_OPS`` holds; the masked sum and the scalar multiplication
+    over G1 and G2) are their plain PyTorch versions, so the plain
     compositions (``*_reference``) run on the card without a hand
     kernel, as the plain versions the fused kernels are held against and
     timed beside.  Checks that no hand kernel launched."""
@@ -757,6 +806,7 @@ def plain_fp():
               (PR, "final_exponentiation",
                PR.final_exponentiation_reference),
               (CV, "masked_sum", CV.masked_sum_reference),
+              (CV, "scalar_mul", CV.scalar_mul_reference),
               (CV, "masked_sum_to_affine",
                CV.masked_sum_to_affine_reference)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
@@ -1879,8 +1929,7 @@ def node_phase(seed):
             lane_waits[LANE_NAMES[req.lane]].append(now - req.enqueued_at)
         observe(batch)
     s._observe_waits = observed
-    for module in wrappers().values():
-        module.LAUNCHES = 0
+    reset_launches()
     got, errors = {}, []
     start = threading.Barrier(len(NODE_THREADS))
 
@@ -2145,8 +2194,7 @@ def consumers_phase(seed):
     keys = [B.PrivateKey(rng.randrange(1, R_ORDER)) for _ in range(COMMITTEE)]
     committee = [k.pub.bytes for k in keys]
     s, flushes = counted_scheduler()
-    for module in wrappers().values():
-        module.LAUNCHES = 0
+    reset_launches()
     parts = {}
 
     def bitmap(signers):
@@ -2494,6 +2542,399 @@ def consumers_phase(seed):
             "parts": {k: v[0] for k, v in parts.items()}}
 
 
+SIGN_KERNELS = ("scalar_mul_g1", "scalar_mul_g2", "g2_masked_sum")
+SIGN_KEYS = 256  # keys derived and signatures made on the card
+# lanes the ladders are timed at; the G2 sum is timed on a quorum's 150
+# of 200 signatures (bucket 256)
+SIGN_TIMED_LANES = (1, 8, 64, 256)
+
+
+def ladder_work(name, points, bits):
+    """(ms, what bounds it) of scalar_mul_g1 or scalar_mul_g2 on these
+    points (..., 3, [2,] 32) and bits (L,) or (..., L): read each point
+    and the bits (once where shared), write each result; the products of
+    the double-and-add on each lane's bits (the table above WORK)."""
+    from harmony_tpu_torch.ops import fp
+
+    dbl, (add, add_z_one) = LADDER_PRODUCTS[name]
+    e = 1 if name == "scalar_mul_g1" else 2
+    pts = points.reshape(-1, 3, e, 32).cpu()
+    rows = bits.reshape(-1, bits.shape[-1]).cpu().tolist()
+    products = 0
+    for lane in range(len(pts)):
+        row = rows[lane % len(rows)]
+        ones = [j for j, b in enumerate(row) if b == 1]
+        if not ones:
+            continue
+        z_one = bool((pts[lane, 2, 0] == fp.ONE_MONT).all()
+                     and (pts[lane, 2, 1:] == 0).all())
+        products += (len(row) - 1 - ones[0]) * dbl + (len(ones) - 1) * (
+            add_z_one if z_one else add)
+    nbytes = 2 * pts.numel() * 4 + bits.numel() * 4
+    return roofline(nbytes, products * MONT_IMAD)
+
+
+def g2_sum_work(points, mask):
+    """(ms, what bounds it) of g2_masked_sum on these Jacobian points (N,
+    3, 2, 32) and mask: read them, write the sum; the products of the tree
+    on this data (sum_tree)."""
+    from harmony_tpu_torch.ops import fp
+    from harmony_tpu_torch.ops import interop as I
+
+    rows = points.cpu()
+    keys = [I.arr_to_g2_affine(r) for r in rows]
+    z_one = [bool((r[2, 0] == fp.ONE_MONT).all() and (r[2, 1] == 0).all())
+             for r in rows]
+    products, _ = sum_tree((keys, z_one), mask.cpu().tolist(), "g2")
+    nbytes = points.numel() * 4 + mask.numel() * 4 + 3 * 2 * 128
+    return roofline(nbytes, products * MONT_IMAD)
+
+
+def once_ms(fn):
+    """(result, device ms) of one call of fn(), by CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def sign_kernels_phase(seed, stats):
+    """scalar_mul_g1, scalar_mul_g2 and g2_masked_sum against their plain
+    versions (plain PyTorch on the card, no hand kernel launched), bit for
+    bit: the ladders on 4 lanes of 32-bit scalars (a zero scalar, one of
+    all ones, a random one, one with words other than 0 and 1; a point at
+    infinity; Z != 1), per lane and shared, and one lane at full width
+    each (a 255-bit key; its plain run timed once); the G2 sum on a point
+    twice, a point and its negative and infinity under masks of every,
+    none and one point and words other than 0 and 1 (5 points, 1 and 0),
+    on 150 of 200 signatures, and on 1,024 points.  Returns the plain
+    versions' ms at full width."""
+    import torch
+
+    from harmony_tpu_torch.kernels import g2_masked_sum as KG2
+    from harmony_tpu_torch.kernels import scalar_mul as KS
+    from harmony_tpu_torch.ops import bls as B
+    from harmony_tpu_torch.ops import curve as CV
+    from harmony_tpu_torch.ops import interop as I
+    from harmony_tpu_torch.ref.curve import G1_GEN, G2_GEN, g1, g2
+    from harmony_tpu_torch.ref.params import R_ORDER
+
+    rng = random.Random(seed + 21)
+    started = time.perf_counter()
+    plain_ms = {}
+    fields = {
+        "scalar_mul_g1": (KS.scalar_mul_g1, CV.FP_OPS, g1, G1_GEN,
+                          I.g1_affine_to_jacobian_arr),
+        "scalar_mul_g2": (KS.scalar_mul_g2, CV.FP2_OPS, g2, G2_GEN,
+                          I.g2_affine_to_jacobian_arr)}
+    for name, (kernel, ops, group, gen, arr) in fields.items():
+        pts = [group.mul(gen, rng.randrange(1, R_ORDER)) for _ in range(4)]
+        pts[1] = None
+        with plain_fp():  # doubled once: Z != 1
+            p = CV.dbl(torch.stack([arr(x) for x in pts]).cuda(), ops)
+        bits = torch.tensor(
+            [[0] * 32, [1] * 32, [rng.randrange(2) for _ in range(32)],
+             [rng.choice((0, 1, 1, 2, -1)) for _ in range(32)]],
+            dtype=torch.int32).cuda()
+        for b, what in ((bits, "per lane"), (bits[2], "shared")):
+            with plain_fp():
+                want = CV.scalar_mul_reference(p, b, ops)
+            _compare(f"{name}, 4 lanes of 32 bits, {what}", kernel(p, b),
+                     want, stats[name])
+        k = rng.randrange(1, R_ORDER)
+        full = torch.tensor([[(k >> (254 - j)) & 1 for j in range(255)]],
+                            dtype=torch.int32).cuda()
+        with plain_fp():
+            want, plain_ms[name] = once_ms(
+                lambda: CV.scalar_mul_reference(p[:1], full, ops))
+        _compare(f"{name}, 1 lane of 255 bits", kernel(p[:1], full), want,
+                 stats[name])
+        log(f"{name}: plain version at 1 lane of 255 bits "
+            f"{plain_ms[name]:.3f} ms")
+
+    def sums(points, masks, what):
+        for mask in masks:
+            with plain_fp():
+                want = CV.masked_sum_reference(points, mask, CV.FP2_OPS)
+            _compare(f"g2_masked_sum, {what}, mask {mask.tolist()[:8]}",
+                     KG2.g2_masked_sum(points, mask), want,
+                     stats["g2_masked_sum"])
+
+    pts = [g2.mul(G2_GEN, rng.randrange(1, R_ORDER)) for _ in range(5)]
+    pts[1], pts[3], pts[4] = None, pts[0], g2.neg(pts[2])
+    with plain_fp():
+        p = CV.dbl(torch.stack([I.g2_affine_to_jacobian_arr(x)
+                                for x in pts]).cuda(), CV.FP2_OPS)
+    masks = torch.tensor([[1, 1, 1, 1, 1], [0, 0, 0, 0, 0], [0, 0, 1, 0, 0],
+                          [1, 0, 0, 1, 0], [1, 2, 1, -1, 0],
+                          [1, 1, 1, 0, 1]], dtype=torch.int32).cuda()
+    for n in (5, 1, 0):
+        sums(p[:n], masks[:, :n], f"{n} points")
+    keys = [g2.mul(G2_GEN, rng.randrange(1, R_ORDER)) for _ in range(16)]
+    for n, chosen in ((COMMITTEE, QUORUM), (1024, 700)):
+        aff = I.g2_batch_affine([keys[i % 16] for i in range(n)]).cuda()
+        jac = B._affine_to_jacobian_g2(aff)
+        mask = [0] * n
+        for i in rng.sample(range(n), chosen):
+            mask[i] = 1
+        sums(jac, torch.tensor([mask], dtype=torch.int32).cuda(),
+             f"{chosen} of {n} points, each key {n // 16} times")
+    log(f"the signing kernels against their plain versions: "
+        f"{time.perf_counter() - started:.3f} s")
+    return plain_ms
+
+
+def sign_timing_phase(seed, plain_ms):
+    """The ladders at 1, 8, 64 and 256 lanes of 255-bit keys (sign's and
+    derive_pubkeys' shapes), the cofactor's 507 bits at 1 lane, and the G2
+    sum of 150 of 200 signatures: wrapper-inclusive ms by CUDA events, the
+    kernel's own device time by torch.profiler, the bound from this run's
+    inputs, and the wrapper's host cost per call; each held bit for bit
+    first, against the plain version where it was run."""
+    import torch
+
+    from harmony_tpu_torch.kernels import g2_masked_sum as KG2
+    from harmony_tpu_torch.kernels import scalar_mul as KS
+    from harmony_tpu_torch.ops import _constants as C
+    from harmony_tpu_torch.ops import bls as B
+    from harmony_tpu_torch.ops import interop as I
+    from harmony_tpu_torch.ref.curve import G2_GEN, g2
+    from harmony_tpu_torch.ref.params import R_ORDER
+
+    rng = random.Random(seed + 23)
+    started = time.perf_counter()
+    timings = {name: {} for name in SIGN_KERNELS}
+    sks = [rng.randrange(1, R_ORDER) for _ in range(max(SIGN_TIMED_LANES))]
+    bits = torch.from_numpy(B.sk_to_bits(sks)).cuda()
+    gen = B.CV.G1_GEN.cuda()
+    h = I.g2_affine_to_jacobian_arr(g2.mul(G2_GEN, 7)).cuda()
+    cases = []
+    for lanes in SIGN_TIMED_LANES:
+        g1_pts = gen.expand(lanes, 3, 32).contiguous()
+        g2_pts = h.expand(lanes, 3, 2, 32).contiguous()
+        cases.append(("scalar_mul_g1", f"{lanes} lanes", lanes,
+                      lambda p=g1_pts, b=bits[:lanes]: KS.scalar_mul_g1(p, b),
+                      ladder_work("scalar_mul_g1", g1_pts, bits[:lanes])))
+        cases.append(("scalar_mul_g2", f"{lanes} lanes", lanes,
+                      lambda p=g2_pts, b=bits[:lanes]: KS.scalar_mul_g2(p, b),
+                      ladder_work("scalar_mul_g2", g2_pts, bits[:lanes])))
+    h2 = B._H2_BITS.cuda()
+    cases.append(("scalar_mul_g2", "1 lane, 507 bits", 1,
+                  lambda: KS.scalar_mul_g2(h[None], h2),
+                  ladder_work("scalar_mul_g2", h[None], h2)))
+    aff = I.g2_batch_affine([g2.mul(G2_GEN, rng.randrange(1, R_ORDER))
+                             for _ in range(COMMITTEE)]).cuda()
+    jac = B._affine_to_jacobian_g2(aff)
+    mask = [0] * COMMITTEE
+    for i in rng.sample(range(COMMITTEE), QUORUM):
+        mask[i] = 1
+    mask = torch.tensor(mask, dtype=torch.int32).cuda()
+    cases.append(("g2_masked_sum", "200 points", COMMITTEE,
+                  lambda: KG2.g2_masked_sum(jac, mask),
+                  g2_sum_work(jac, mask)))
+    with plain_fp():
+        _, plain_ms["g2_masked_sum"] = once_ms(
+            lambda: B.CV.masked_sum_reference(jac, mask, B.CV.FP2_OPS))
+    card = card_line()
+    for op, shape, n, kernel, (bound_ms, bound_by) in cases:
+        try:
+            device_ms = 1e-3 * device_us(kernel, op, 3)
+        except AssertionError as e:
+            # torch.profiler dropped this kernel in every session; the time
+            # by CUDA events stands, the device time is not measured
+            log(f"{op} at {shape}: device time not measured: {e}")
+            device_ms = None
+        t = timings[op][shape] = {
+            "lanes": n,
+            "ms": cuda_ms(kernel, 5),
+            "device_ms": device_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "host_us_per_call": host_us(kernel, 10),
+        }
+        device = "not measured" if device_ms is None else \
+            f"{device_ms:.6f} ms"
+        log(f"[{card}] {op} at {shape}: {t['ms']:.6f} ms with the "
+            f"wrapper, {device} on the device, bound {bound_ms:.6f} ms "
+            f"({bound_by}), host {t['host_us_per_call']:.3f} us per call")
+    for op, shape in (("scalar_mul_g1", "1 lanes"), ("scalar_mul_g2",
+                                                      "1 lanes"),
+                      ("g2_masked_sum", "200 points")):
+        timings[op][shape]["plain_ms"] = plain_ms[op]
+    check(C.H2.bit_length() == len(h2) == 507, "the cofactor's bits")
+    log(f"the signing kernels timed: {time.perf_counter() - started:.3f} s")
+    return timings
+
+
+def signing_phase(seed):
+    """The device signing ops through ops/bls.py at mainnet width, their
+    launch counts from zero: 256 keys derived (derive_pubkeys), one
+    payload mapped to the twist on the host and its cofactor cleared on
+    the card (clear_cofactor_g2), 256 signatures (sign), the aggregate of
+    150 of 200 (aggregate_sigs); every lane in affine (made so on the
+    host: the card inverts nothing secret-derived) equal to the host's
+    (native library); the aggregate verified by agg_verify_hashed_on_device
+    against a committee table of the derived keys, and an aggregate with
+    one forged lane rejected; every call held to its exact launches."""
+    import torch
+
+    from harmony_tpu_torch import device as D
+    from harmony_tpu_torch.ops import _constants as C
+    from harmony_tpu_torch.ops import bls as B
+    from harmony_tpu_torch.ops import interop as I
+    from harmony_tpu_torch.ref import native as NB
+    from harmony_tpu_torch.ref.curve import G1_GEN
+    from harmony_tpu_torch.ref.hash_to_curve import hash_to_g2, map_to_twist
+    from harmony_tpu_torch.ref.params import R_ORDER
+
+    rng = random.Random(seed + 22)
+    started = time.perf_counter()
+    sks = [rng.randrange(1, R_ORDER) for _ in range(SIGN_KEYS)]
+    payload = b"harmony shard 0 commit, seed %d" % seed
+    tw = map_to_twist(payload)
+    calls = {}
+
+    def call(what, want, fn, *args):
+        torch.cuda.synchronize()
+        before, t0 = launches(), time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        made = since(before)
+        check(made == {k: want.get(k, 0) for k in made},
+              f"{what} launched {made}, not {want}")
+        calls[what] = (ms, {k: n for k, n in made.items() if n})
+        log(f"{what}: {ms:.3f} ms, launches " + ", ".join(
+            f"{n} {k}" for k, n in made.items() if n))
+        return out
+
+    qc = {k: 1 for k in PATH_KERNELS}
+    reset_launches()
+    bits = torch.from_numpy(B.sk_to_bits(sks)).cuda()
+    pks = call("derive_pubkeys, 256 keys", {"scalar_mul_g1": 1},
+               B.derive_pubkeys, bits)
+    h = call("clear_cofactor_g2, 1 payload", {"scalar_mul_g2": 1},
+             B.clear_cofactor_g2, I.g2_affine_to_jacobian_arr(tw)[None].cuda())
+    sigs = call("sign, 256 lanes", {"scalar_mul_g2": 1}, B.sign,
+                h.expand(SIGN_KEYS, 3, 2, 32), bits)
+    t0 = time.perf_counter()
+    pk_aff = [I.arr_to_g1_affine(r) for r in pks.cpu()]
+    h_aff = I.arr_to_g2_affine(h[0].cpu())
+    sig_aff = [I.arr_to_g2_affine(r) for r in sigs.cpu()]
+    check(NB.available(), "the native host library is not loaded")
+    check(h_aff == hash_to_g2(payload) == NB.g2_mul(tw, C.H2),
+          "clear_cofactor_g2 differs from the host's hash_to_g2")
+    for i, sk in enumerate(sks):
+        check(pk_aff[i] == NB.g1_mul(G1_GEN, sk),
+              f"derive_pubkeys lane {i} differs from the host")
+        check(sig_aff[i] == NB.g2_mul(h_aff, sk),
+              f"sign lane {i} differs from the host")
+    log(f"every lane == the host (native g1_mul, g2_mul, hash_to_g2; made "
+        f"affine on the host in {time.perf_counter() - t0:.3f} s): "
+        f"{SIGN_KEYS} keys, the hashed payload, {SIGN_KEYS} signatures")
+
+    bitmap = [0] * COMMITTEE
+    for i in rng.sample(range(COMMITTEE), QUORUM):
+        bitmap[i] = 1
+    bm = torch.tensor(bitmap, dtype=torch.int32).cuda()
+    agg = call("aggregate_sigs, 150 of 200", {"g2_masked_sum": 1},
+               B.aggregate_sigs, I.g2_batch_affine(sig_aff[:COMMITTEE]).cuda(),
+               bm)
+    agg_aff = I.arr_to_g2_affine(agg.cpu())
+    check(agg_aff == NB.g2_sum([s for s, b in zip(sig_aff, bitmap) if b]),
+          "aggregate_sigs differs from the host's g2_sum")
+    table = D.CommitteeTable(pk_aff[:COMMITTEE])
+    ok = call("agg_verify_hashed_on_device, the aggregate", qc,
+              D.agg_verify_hashed_on_device, table, bitmap, h_aff, agg_aff)
+    check(ok is True, "the aggregate of the card's signatures was rejected")
+    j = bitmap.index(1)
+    forged = list(sig_aff[:COMMITTEE])
+    forged[j] = NB.g2_mul(h_aff, (sks[j] + 1) % R_ORDER)
+    bad = call("aggregate_sigs, one lane forged", {"g2_masked_sum": 1},
+               B.aggregate_sigs, I.g2_batch_affine(forged).cuda(), bm)
+    ok = call("agg_verify_hashed_on_device, the forged aggregate", qc,
+              D.agg_verify_hashed_on_device, table, bitmap, h_aff,
+              I.arr_to_g2_affine(bad.cpu()))
+    check(ok is False, "an aggregate with a forged lane was accepted")
+    node_clean("the signing phase")
+    path = launches()
+    for name in SIGN_KERNELS:
+        check(path[name] > 0, f"the signing path never launched {name}")
+    seconds = time.perf_counter() - started
+    log(f"signing path: {seconds:.3f} s, launches " + ", ".join(
+        f"{n} {k}" for k, n in path.items() if n))
+    return {"launches": path, "calls": calls, "seconds": seconds,
+            "pks": pks, "pk_aff": pk_aff, "sig_aff": sig_aff,
+            "h_aff": h_aff, "agg_aff": agg_aff, "bitmap": bitmap}
+
+
+def mesh_phase(signing):
+    """parallel/mesh.py on the card: a NCCL process group of world size 1
+    (the machine has one card, so no scaling is measured), each sharded_*
+    against the unsharded call on the same inputs: the masked sum of the
+    signing phase's 200 Jacobian keys under its bitmap, 8 single checks
+    with a forged lane, the pairing product of two of them, and the
+    quorum check of the card's aggregate and of a forged one."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from harmony_tpu_torch.ops import bls as B
+    from harmony_tpu_torch.ops import curve as CV
+    from harmony_tpu_torch.ops import interop as I
+    from harmony_tpu_torch.ops import pairing as PR
+    from harmony_tpu_torch.parallel import mesh as M
+
+    started = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mesh = M.make_mesh("cuda", init_method=f"tcp://127.0.0.1:{port}",
+                       world_size=1, rank=0)
+    try:
+        check((mesh.size, mesh.rank, dist.get_backend()) == (1, 0, "nccl"),
+              "the mesh is not one NCCL rank")
+        keys = signing["pks"][:COMMITTEE]
+        bits = torch.tensor(signing["bitmap"], dtype=torch.int32).cuda()
+        got = M.sharded_masked_sum(mesh)(keys, bits)
+        check(torch.equal(got, CV.masked_sum(keys, bits, CV.FP_OPS)),
+              "sharded_masked_sum differs from masked_sum")
+        pk = I.g1_batch_affine(signing["pk_aff"][:8]).cuda()
+        h = I.g2_affine_to_arr(signing["h_aff"]).cuda()
+        sig = I.g2_batch_affine(signing["sig_aff"][:8]).cuda()
+        sig[3] = sig[4]
+        h8 = h.expand(8, 2, 2, 32)
+        got = M.sharded_verify(mesh)(pk, h8, sig)
+        check(torch.equal(got, B.verify(pk, h8, sig))
+              and got.tolist() == [True] * 3 + [False] + [True] * 4,
+              f"sharded_verify: {got.tolist()}")
+        got = M.sharded_pairing_product(mesh)(pk[:2, None], sig[:2, None])
+        check(torch.equal(got, PR.pairing_product(pk[:2, None],
+                                                  sig[:2, None])),
+              "sharded_pairing_product differs from pairing_product")
+        agg = I.g2_affine_to_arr(signing["agg_aff"]).cuda()
+        table = I.g1_batch_affine(signing["pk_aff"][:COMMITTEE]).cuda()
+        for what, s, want in (("the aggregate", agg, True),
+                              ("a forged aggregate", sig[0], False)):
+            got = M.sharded_agg_verify(mesh)(keys, bits, h, s)
+            check(bool(got) is want
+                  and bool(B.agg_verify(table, bits, h, s)) is want,
+                  f"sharded_agg_verify of {what}: {bool(got)}")
+    finally:
+        dist.destroy_process_group()
+    seconds = time.perf_counter() - started
+    log(f"mesh: NCCL at world size 1, every sharded_* == the unsharded "
+        f"call; {seconds:.3f} s")
+    return seconds
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1673)
@@ -2540,7 +2981,8 @@ def main(argv=None):
     # the phase plans and rounds keep every index into a register array
     # constant
     for kernel in ("fp12_mul", "fp12_cyclo_sqr", "miller_loop",
-                   "g1_masked_sum", "final_exp"):
+                   "g1_masked_sum", "final_exp", "scalar_mul_g1",
+                   "scalar_mul_g2", "g2_masked_sum"):
         check(all(f"0 bytes {what}" in ptxas[kernel] for what in
                   ("stack frame", "spill stores", "spill loads")),
               f"{kernel} has a stack frame or spills: {ptxas[kernel]}")
@@ -2561,8 +3003,7 @@ def main(argv=None):
     timings.update(final_exp_timing_phase(final_exp_in))
 
     # the main path: launch counts start from zero here
-    for module in wrappers().values():
-        module.LAUNCHES = 0
+    reset_launches()
     _, entry_calls = slice_phase(args.seed)
     node_clean("the slice phase")
     path = launches()
@@ -2580,16 +3021,24 @@ def main(argv=None):
                                   in node["launches"].items()) + " launches")
     # the consumers of the checks: their launch counts start from zero
     consumers = consumers_phase(args.seed)
+    # the signing ops: their kernels against the plain versions and timed,
+    # then their path through ops/bls.py, its counts from zero; the mesh
+    plain_ms = sign_kernels_phase(args.seed, stats)
+    timings.update(sign_timing_phase(args.seed, plain_ms))
+    signing = signing_phase(args.seed)
+    mesh_phase(signing)
 
-    def entry(name, source, replaces, op, shape, described, kept):
+    def entry(name, source, replaces, op, shape, described, kept,
+              counted=path):
         t = timings[op][shape]
         return {
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": path[name],
+            "launches": counted[name],
             "consumers_launches": consumers["launches"][name],
+            "signing_launches": signing["launches"][name],
             "max_abs_err": stats[name]["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -2637,6 +3086,22 @@ def main(argv=None):
               "final_exp", "1 lanes",
               "1 lane, a quorum check's final exponentiation",
               ("final_exp",)),
+        entry("scalar_mul_g1", "harmony_tpu_torch/csrc/scalar_mul.cu",
+              "none: fuses harmony_tpu/ops/curve.py:195-218 scalar_mul "
+              "over FP_OPS (scan, fused by XLA)", "scalar_mul_g1", "1 lanes",
+              "1 lane of a 255-bit key (derive_pubkeys); launches: the "
+              "signing path", ("scalar_mul_g1",), signing["launches"]),
+        entry("scalar_mul_g2", "harmony_tpu_torch/csrc/scalar_mul.cu",
+              "none: fuses harmony_tpu/ops/curve.py:195-218 scalar_mul "
+              "over FP2_OPS (scan, fused by XLA)", "scalar_mul_g2",
+              "1 lanes", "1 lane of a 255-bit key (sign); launches: the "
+              "signing path", ("scalar_mul_g2",), signing["launches"]),
+        entry("g2_masked_sum", "harmony_tpu_torch/csrc/g2_masked_sum.cu",
+              "none: fuses harmony_tpu/ops/curve.py:235-262 masked_sum "
+              "over FP2_OPS (jnp, fused by XLA)", "g2_masked_sum",
+              "200 points", "150 of 200 signatures, bucket 256 "
+              "(aggregate_sigs); launches: the signing path",
+              ("g2_masked_sum",), signing["launches"]),
     ]
     log(f"chip_smoke took {time.perf_counter() - started:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -97,12 +97,15 @@ def verify_buckets() -> tuple:
     """The buckets of the node's device (else CUDA), as
     ``device.batch_buckets`` chooses them: whether the device is CUDA
     decides, not whether the device path is on (it can be on with the
-    node's device set to the CPU)."""
+    node's device set to the CPU).  With no node device and no CUDA, the
+    CPU's."""
     from .. import device as DV
 
-    if DV.resolve_device().type == "cuda":
-        return VERIFY_BUCKETS_GPU
-    return VERIFY_BUCKETS_CPU
+    try:
+        on_card = DV.resolve_device().type == "cuda"
+    except RuntimeError:  # no node device, and CUDA is not available
+        on_card = False
+    return VERIFY_BUCKETS_GPU if on_card else VERIFY_BUCKETS_CPU
 
 
 # back-compat name (tests reference it)

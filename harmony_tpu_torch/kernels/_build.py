@@ -37,10 +37,12 @@ CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "mont_mul.cu", CSRC / "fp_addsub.cu", CSRC / "fp12_mul.cu",
            CSRC / "fp12_cyclo_sqr.cu", CSRC / "miller_loop.cu",
            CSRC / "fp_inv.cu", CSRC / "g1_masked_sum.cu",
-           CSRC / "final_exp.cu")
+           CSRC / "final_exp.cu", CSRC / "scalar_mul.cu",
+           CSRC / "g2_masked_sum.cu")
 HEADERS = (CSRC / "fp384.cuh", CSRC / "fp384_split.cuh", CSRC / "fp12.cuh",
            CSRC / "phases.cuh", CSRC / "fp12_plans.cuh", CSRC / "cyclo.cuh",
-           CSRC / "miller.cuh", CSRC / "final_exp.cuh", CSRC / "g1.cuh")
+           CSRC / "miller.cuh", CSRC / "final_exp.cuh", CSRC / "g1.cuh",
+           CSRC / "jac.cuh")
 BUILD_DIR = _PKG / "_build"
 
 
@@ -68,12 +70,13 @@ _COMPILE_FLAGS = ["-Xptxas", "-v"]
 
 # What the kernels take: rows of limbs (one Fp element), lanes of 12 such
 # rows (one Fp12 element, ops/__init__.py), the affine points of G1 and of
-# the G2 twist, and the Jacobian points of G1
+# the G2 twist, and the Jacobian points of both
 FP = (N_LIMBS,)
 FP12 = (2, 3, 2, N_LIMBS)
 G1_AFFINE = (2, N_LIMBS)
 G2_AFFINE = (2, 2, N_LIMBS)
 G1_JACOBIAN = (3, N_LIMBS)
+G2_JACOBIAN = (3, 2, N_LIMBS)
 
 
 def _signature(n_ptrs, *extra):
@@ -95,7 +98,12 @@ _ENTRY_POINTS = {"harmony_mont_mul": _signature(3),
                  "harmony_fp_inv": _signature(2),
                  "harmony_g1_masked_sum": _signature(
                      3, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32),
-                 "harmony_final_exp": _signature(2)}
+                 "harmony_final_exp": _signature(2),
+                 "harmony_scalar_mul_g1": _signature(
+                     3, ctypes.c_int64, ctypes.c_int32),
+                 "harmony_scalar_mul_g2": _signature(
+                     3, ctypes.c_int64, ctypes.c_int32),
+                 "harmony_g2_masked_sum": _signature(3, ctypes.c_int64)}
 
 _lib = None
 _lock = threading.Lock()

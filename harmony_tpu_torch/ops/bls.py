@@ -1,28 +1,89 @@
-"""Batched BLS signature checks: the quorum-verify path.
+"""Batched BLS signature ops: the quorum-verify path and the signing ops.
 
-    check                               op here
+    op                                  op here
     --------------------------------------------------------------------
     single verify (Sign.VerifyHash)     verify (batched 2-pairing check)
     aggregate verify vs a bitmap        agg_verify (masked G1 sum +
                                           one 2-pairing product)
     B aggregate verifies, one table     agg_verify_batch
     PublicKey.Add over a mask           aggregate_pubkeys
+    SecretKey.SignHash                  sign (batched scalar-mul on G2)
+    keygen's public keys                derive_pubkeys (scalar-mul on G1)
+    hashAndMapToG2 (cofactor part)      clear_cofactor_g2
+    Sign.Add                            aggregate_sigs (masked G2 sum)
 
-Conventions: points are affine limb tensors in the Montgomery domain (G1
-(B, 2, 32), G2 (B, 2, 2, 32)); infinity is affine (0, 0).  Hashed
-messages arrive as twist points produced on the host
-(ref/hash_to_curve.py).  Every function runs on the device of its inputs.
+Conventions: secret keys are MSB-first bit tensors (B, 255); points are
+limb tensors in the Montgomery domain, affine (G1 (B, 2, 32), G2
+(B, 2, 2, 32), infinity (0, 0)) or, where a function says so, Jacobian
+(G1 (B, 3, 32), G2 (B, 3, 2, 32)).  Hashed messages arrive as twist points
+produced on the host (ref/hash_to_curve.py).  Every function runs on the
+device of its input tensors; ``derive_pubkeys``, whose only input is the
+bits, takes a device.  The node signs on the host (``ref``); these are
+the batched device forms of the same operations.
 """
 
+import numpy as np
 import torch
 
+from . import _constants as C
 from . import curve as CV
 from . import fp
 from . import pairing as PR
 from . import towers as T
 
+SK_BITS = 255  # ceil(log2 r)
+
+# the G2 cofactor's bits, MSB first (507 of them)
+_H2_BITS = torch.tensor([int(b) for b in bin(C.H2)[2:]], dtype=torch.int32)
+
 # (x, -y) of the G1 generator, affine, built once on the host
 _NEG_G1_GEN_AFF = torch.stack([CV.G1_GEN[0], fp.neg(CV.G1_GEN[1])])
+
+
+def sk_to_bits(sk_ints) -> np.ndarray:
+    """Host helper: list of scalar ints -> (B, 255) MSB-first bit matrix."""
+    out = np.zeros((len(sk_ints), SK_BITS), dtype=np.int32)
+    for row, sk in enumerate(sk_ints):
+        for j in range(SK_BITS):
+            out[row, j] = (sk >> (SK_BITS - 1 - j)) & 1
+    return out
+
+
+@torch.inference_mode()
+def derive_pubkeys(sk_bits, device=None):
+    """pk = sk * G1 for a batch of secret keys; returns Jacobian (B, 3, 32).
+
+    Runs on ``device``; by default on the bits' device where they are a
+    tensor, else on CUDA, which must exist (pass device="cpu" for the
+    plain version on the CPU)."""
+    if device is None:
+        if isinstance(sk_bits, torch.Tensor):
+            device = sk_bits.device
+        elif torch.cuda.is_available():
+            device = "cuda"
+        else:
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU")
+    bits = torch.as_tensor(sk_bits, dtype=torch.int32, device=device)
+    base = fp.on_device(CV.G1_GEN, bits.device).expand(
+        bits.shape[0], *CV.G1_GEN.shape)
+    return CV.scalar_mul(base, bits, CV.FP_OPS)
+
+
+@torch.inference_mode()
+def clear_cofactor_g2(pts):
+    """Multiply twist points (B, 3, 2, 32) Jacobian by the G2 cofactor —
+    the device half of hash-to-G2 (the host maps to the twist).  One bit
+    string for every point."""
+    return CV.scalar_mul(pts, fp.on_device(_H2_BITS, pts.device),
+                         CV.FP2_OPS)
+
+
+@torch.inference_mode()
+def sign(h_points, sk_bits):
+    """sig = sk * H(m): batched SignHash.  h_points are Jacobian G2
+    (B, 3, 2, 32) hashed-message points; returns Jacobian signatures."""
+    return CV.scalar_mul(h_points, sk_bits, CV.FP2_OPS)
 
 
 @torch.inference_mode()
@@ -72,6 +133,17 @@ def agg_verify_batch(pk_affs, bitmaps, h_affs, agg_sig_affs):
     # (B, 2, 32)
     pk_aff = CV.masked_sum_to_affine(pk_affs[:, None], bitmaps.T)
     return verify(pk_aff, h_affs, agg_sig_affs)
+
+
+@torch.inference_mode()
+def aggregate_sigs(sig_affs, bitmap=None):
+    """Sign.Add analog: sum signatures (N, 2, 2, 32) in G2, optionally
+    bitmap-masked; returns a Jacobian point (3, 2, 32)."""
+    n = sig_affs.shape[0]
+    jac = _affine_to_jacobian_g2(sig_affs)
+    if bitmap is None:
+        bitmap = torch.ones((n,), dtype=torch.int32, device=sig_affs.device)
+    return CV.masked_sum(jac, bitmap, CV.FP2_OPS)
 
 
 @torch.inference_mode()

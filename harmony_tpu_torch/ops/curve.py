@@ -10,18 +10,24 @@ Design, as in the JAX package:
   calls per double, 6 per add).
 - Generic over the coordinate field via a small op table; G1 and G2 share
   all the code.
-- The masked sum over G1 (``FP_OPS``) dispatches on its tensors' device:
-  a CUDA tensor launches the hand-written kernel of
-  ``kernels/g1_masked_sum.py`` (the select, padding, tree and, in
-  ``masked_sum_to_affine``, the affine form, in one launch) or raises; a
-  CPU tensor runs the plain ``masked_sum_reference`` (and ``to_affine``).
-  Over G2 the plain body runs everywhere.
+- The masked sum and the scalar multiplication dispatch on their
+  tensors' device: a CUDA tensor launches a hand-written kernel or
+  raises; a CPU tensor runs the plain version.  The masked sum over G1
+  (``FP_OPS``) goes to ``kernels/g1_masked_sum.py`` (the select, padding,
+  tree and, in ``masked_sum_to_affine``, the affine form, in one launch)
+  and over G2 (``FP2_OPS``) to ``kernels/g2_masked_sum.py``; their plain
+  version is ``masked_sum_reference`` (and ``to_affine``).
+  ``scalar_mul`` goes to ``kernels/scalar_mul.py`` (the whole ladder in
+  one launch, in constant time); its plain version is
+  ``scalar_mul_reference``.
 """
 
 import numpy as np
 import torch
 
 from ..kernels import g1_masked_sum as K_G1
+from ..kernels import g2_masked_sum as K_G2
+from ..kernels import scalar_mul as K_SM
 from . import _constants as C
 from . import fp
 from . import towers as T
@@ -176,6 +182,46 @@ def _batch_shape(pt, ops):
     return pt.shape[: pt.dim() - (ops.coord_axes + 1)]
 
 
+def neg(pt, ops):
+    x, y, z = _coords(pt, ops)
+    return _point(x, ops.neg(y), z, ops)
+
+
+def scalar_mul(pt, bits, ops):
+    """Double-and-add over an MSB-first bit tensor.
+
+    ``bits`` is either an (L,) tensor (the same scalar for the whole
+    batch, e.g. cofactor clearing) or (..., L) per-element scalars (e.g.
+    signing), converted to int32 on the points' device.  A CPU tensor runs
+    ``scalar_mul_reference``; a tensor off the CPU goes to the kernel's
+    wrapper (``FP_OPS``: G1, ``FP2_OPS``: G2), which launches it or
+    raises.
+    """
+    bits = torch.as_tensor(bits, dtype=torch.int32, device=pt.device)
+    if pt.is_cpu:
+        return scalar_mul_reference(pt, bits, ops)
+    if ops is FP_OPS:
+        return K_SM.scalar_mul_g1(pt, bits)
+    if ops is FP2_OPS:
+        return K_SM.scalar_mul_g2(pt, bits)
+    raise ValueError("scalar_mul runs on the card over FP_OPS or FP2_OPS")
+
+
+def scalar_mul_reference(pt, bits, ops):
+    """The plain ``scalar_mul``: the JAX package's scan as a loop.  Each
+    step doubles, adds without the doubling fallback (the accumulator is
+    k' pt with k' != 1 at every add) and selects by the bit, from
+    (1, 1, 0)."""
+    bits = torch.as_tensor(bits, dtype=torch.int32, device=pt.device)
+    xs = bits.movedim(-1, 0) if bits.dim() > 1 else bits
+    acc = infinity(ops, _batch_shape(pt, ops), pt.device)
+    for bit in xs:
+        acc = dbl(acc, ops)
+        with_add = add(acc, pt, ops, handle_equal=False)
+        acc = _select_point(bit == 1, with_add, acc, ops)
+    return acc
+
+
 def to_affine(pt, ops):
     """Jacobian -> affine (x, y); infinity maps to (0, 0)."""
     x, y, z = _coords(pt, ops)
@@ -195,18 +241,21 @@ def masked_sum(points, mask, ops):
     ``points`` has the batch axis FIRST: (N, ..., 3, <field>); over G1 they
     may also be affine, (N, ..., 2, 32) with (0, 0) for infinity (the
     resident key table).  ``mask`` is (N,) or, for B sums over one
-    committee at once, (N, B) with points (N, 1, 3 or 2, <field>).  Over
-    G1, a tensor off the CPU goes to the kernel's wrapper, which launches
-    it (the sum alone, no affine form) or raises; everything else runs
+    committee at once, (N, B) with points (N, 1, 3 or 2, <field>).  A
+    tensor off the CPU goes to the kernel's wrapper (over G1 the sum
+    alone, no affine form; over G2 the (N,) form of Jacobian points),
+    which launches it or raises; a CPU tensor runs
     ``masked_sum_reference``.
     """
-    if ops is FP_OPS:
-        if not points.is_cpu:
-            return K_G1.g1_masked_sum(
-                points, torch.as_tensor(mask, device=points.device),
-                affine=False)[0]
-        if points.shape[-2] == 2:
-            points = affine_to_jacobian_g1(points)
+    if not points.is_cpu:
+        mask = torch.as_tensor(mask, device=points.device)
+        if ops is FP_OPS:
+            return K_G1.g1_masked_sum(points, mask, affine=False)[0]
+        if ops is FP2_OPS:
+            return K_G2.g2_masked_sum(points, mask)
+        raise ValueError("masked_sum runs on the card over FP_OPS or FP2_OPS")
+    if ops is FP_OPS and points.shape[-2] == 2:
+        points = affine_to_jacobian_g1(points)
     return masked_sum_reference(points, mask, ops)
 
 

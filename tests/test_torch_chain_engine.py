@@ -387,6 +387,22 @@ def test_verify_buckets_follow_the_device():
         T_DV.use_device(None)
 
 
+def test_verify_buckets_without_a_node_device_or_cuda_are_the_cpus(
+        monkeypatch):
+    """With no node device (the default) on a host without CUDA, the
+    buckets are the CPU's, the JAX package's answer there, and
+    bucket_size follows them: resolving the device raises, the buckets do
+    not."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    T_DV.use_device(None)
+    J_DV.use_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T_DV.resolve_device()
+    assert T_ENG.verify_buckets() == J_ENG.verify_buckets() == (8, 64)
+    assert [T_ENG.bucket_size(n) for n in (1, 9, 65, 300)] == \
+        [J_ENG.bucket_size(n) for n in (1, 9, 65, 300)] == [8, 64, 64, 64]
+
+
 # -- the engine's checks ------------------------------------------------------------
 
 
