@@ -36,6 +36,12 @@
 #include "fp12.cuh"
 #include "fp384_split.cuh"
 
+// A host test may count the modular adds and subs that the plans make:
+// it defines PHASES_COUNT_OP() before it includes this header.
+#if !defined(PHASES_COUNT_OP)
+#define PHASES_COUNT_OP()
+#endif
+
 namespace phases {
 
 using fp384::kWords;
@@ -140,6 +146,7 @@ constexpr int block_threads() {
 // (a + b) mod p for canonical a, b.
 FP384_FN void add(const uint32_t a[kWords], const uint32_t b[kWords],
                   uint32_t out[kWords]) {
+  PHASES_COUNT_OP();
 #if defined(__CUDA_ARCH__)
   constexpr uint32_t p[kWords] = {HARMONY_P_WORDS};
   uint32_t t[kWords], d[kWords], borrow;
@@ -167,6 +174,7 @@ FP384_FN void add(const uint32_t a[kWords], const uint32_t b[kWords],
 // 2^384 - p and e carries out; where a >= b, e = a - b + p < 2p does not.
 FP384_FN void sub(const uint32_t a[kWords], const uint32_t b[kWords],
                   uint32_t out[kWords]) {
+  PHASES_COUNT_OP();
 #if defined(__CUDA_ARCH__)
   constexpr uint32_t p[kWords] = {HARMONY_P_WORDS};
   uint32_t d[kWords], e[kWords], carry;
@@ -193,6 +201,7 @@ FP384_FN void sub(const uint32_t a[kWords], const uint32_t b[kWords],
 // and no select.  The product takes operands below 2p (fp384_split.cuh).
 FP384_FN void add_lazy(const uint32_t a[kWords], const uint32_t b[kWords],
                        uint32_t out[kWords]) {
+  PHASES_COUNT_OP();
 #if defined(__CUDA_ARCH__)
   FP384_CHAIN("add.cc.u32", out[0], a[0], b[0]);
 #pragma unroll
@@ -206,6 +215,7 @@ FP384_FN void add_lazy(const uint32_t a[kWords], const uint32_t b[kWords],
 
 FP384_FN void sub_lazy(const uint32_t a[kWords], const uint32_t b[kWords],
                        uint32_t out[kWords]) {
+  PHASES_COUNT_OP();
   constexpr uint32_t p[kWords] = {HARMONY_P_WORDS};
 #if defined(__CUDA_ARCH__)
   uint32_t d[kWords];

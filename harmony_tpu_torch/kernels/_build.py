@@ -103,6 +103,10 @@ _ENTRY_POINTS = {"harmony_mont_mul": _signature(3),
                      3, ctypes.c_int64, ctypes.c_int32),
                  "harmony_scalar_mul_g2": _signature(
                      3, ctypes.c_int64, ctypes.c_int32),
+                 "harmony_scalar_mul_g1_phases": _signature(
+                     4, ctypes.c_int64, ctypes.c_int32),
+                 "harmony_scalar_mul_g2_phases": _signature(
+                     4, ctypes.c_int64, ctypes.c_int32),
                  "harmony_g2_masked_sum": _signature(3, ctypes.c_int64)}
 
 _lib = None

@@ -1,8 +1,9 @@
 """The scalar multiplication and masked G2 sum kernels' plans, on the CPU.
 
 ``harmony_tpu_torch/csrc/jac.cuh`` holds the plans that ``scalar_mul.cu``
-(one lane's ladder: the doubling, the addition without the doubling
-fallback, and the select by the bit) and ``g2_masked_sum.cu`` (an add of
+(one lane's ladder: a setup, then a step a bit of six rounds of products
+that only load their operands, each followed by a phase of adds, the
+last of which selects by the bit) and ``g2_masked_sum.cu`` (an add of
 the tree, with the doubling where its operands are equal) run on the
 card, over Fp and Fp2 by one template.  Outside nvcc they are plain C++,
 so here g++ compiles them through a small host harness, with the header
@@ -23,7 +24,8 @@ other than 0 and 1; at full width (255 and 507 bits) the ladder must give
 the bigint reference's points.  The constant-time property, where it can
 be checked without a card: the ladder runs the same phases, tasks and
 products, in the same order, for a scalar of all zeros, one of all ones
-and a random one.  Without g++ the tests skip.
+and a random one.  The ladder's product tasks make no modular add or
+sub (phases.cuh's count of them).  Without g++ the tests skip.
 """
 
 import ctypes
@@ -44,7 +46,16 @@ from harmony_tpu_torch.ref.curve import G1_GEN, G2_GEN, g1, g2
 from harmony_tpu_torch.ref.params import R_ORDER
 from test_torch_fp12_host import HOST_RUNNER
 
-_HOST_SRC = HOST_RUNNER + r"""
+# Counts the modular adds and subs of phases.cuh (its PHASES_COUNT_OP hook)
+_COUNTER = r"""
+#include <cstdint>
+namespace host_ops {
+inline int64_t count = 0;
+}
+#define PHASES_COUNT_OP() (++host_ops::count)
+"""
+
+_HOST_SRC = _COUNTER + HOST_RUNNER + r"""
 #include "jac.cuh"
 
 namespace {
@@ -54,8 +65,22 @@ using host::store;
 constexpr int kWords = fp384::kWords;
 constexpr int kLimbs = fp384::kLimbs;
 
-// The ladder of each lane as scalar_mul.cu runs it: the base point and
-// (1, 1, 0) in place, then a step a bit, the bit's mask written first.
+// One lane's scratch area as scalar_mul.cu starts it: poisoned, the base
+// point and (1, 1, 0) in place.
+template <class F>
+void start(std::vector<uint32_t>& s, const int32_t* point) {
+  using L = jac::Ladder<F>;
+  host::poison(s);
+  for (int e = 0; e < 3 * F::kE; ++e) {
+    load(point + e * kLimbs, s.data(), L::kBase + e);
+    uint32_t w[kWords];
+    jac::infinity_element<F>(e, w);
+    fp12::st(s.data(), L::kAcc + e, w);
+  }
+}
+
+// The ladder of each lane as scalar_mul.cu runs it: the setup, then a
+// step a bit, the bit's mask written first.
 template <class F>
 int ladder(const int32_t* points, const int32_t* bits, int64_t n_bits,
            int shared, int32_t* out, int64_t lanes, int order) {
@@ -64,17 +89,12 @@ int ladder(const int32_t* points, const int32_t* bits, int64_t n_bits,
   std::vector<uint32_t> s(L::kScratch * kWords);
   const host::Runner run{&s, order};
   for (int64_t lane = 0; lane < lanes; ++lane) {
-    host::poison(s);
-    for (int e = 0; e < kRows; ++e) {
-      load(points + (lane * kRows + e) * kLimbs, s.data(), L::kBase + e);
-      uint32_t w[kWords];
-      jac::infinity_element<F>(e, w);
-      fp12::st(s.data(), L::kAcc + e, w);
-    }
+    start<F>(s, points + lane * kRows * kLimbs);
+    if (!run(typename L::Setup{})) return -1;
     const int32_t* mine = bits + (shared ? 0 : lane * n_bits);
     for (int64_t i = 0; i < n_bits; ++i) {
-      s[L::kBit * kWords] = jac::mask(mine[i] == 1);
-      if (!jac::step<F>(run)) return -1;
+      s[L::kBitWord] = jac::mask(mine[i] == 1);
+      if (!run(typename L::Step{})) return -1;
     }
     for (int e = 0; e < kRows; ++e) {
       store(s.data(), L::kAcc + e, out + (lane * kRows + e) * kLimbs);
@@ -124,11 +144,15 @@ int masked_sum(const int32_t* points, const int32_t* mask, int64_t n,
 }
 
 // Records what a plan runs: each phase's kind and tasks, and each product
-// task's element, hashed in order (FNV-1a), with the products counted.
+// task's element, hashed in order (FNV-1a), with the products counted, and
+// the modular adds and subs of the product tasks (forming operands) and of
+// the phases of adds counted apart.
 struct Tracer {
   std::vector<uint32_t>* s;
   uint64_t* hash;
   int64_t* products;
+  int64_t* product_ops;
+  int64_t* linear_ops;
 
   void mix(uint64_t v) const {
     *hash = (*hash ^ v) * 0x100000001b3ull;
@@ -139,15 +163,18 @@ struct Tracer {
     mix(Ph::kProduct ? 1 : 2);
     mix(Ph::kTasks);
     for (int k = 0; k < Ph::kTasks; ++k) {
+      const int64_t before = host_ops::count;
       if constexpr (Ph::kProduct) {
         uint32_t x[kWords], y[kWords], r[kWords];
         const int at = Ph::operands(k, s->data(), x, y);
+        *product_ops += host_ops::count - before;
         mix(static_cast<uint64_t>(at));
         fp384::mont_mul(x, y, r);
         fp12::st(s->data(), at, r);
         ++*products;
       } else {
         Ph::task(k, s->data());
+        *linear_ops += host_ops::count - before;
       }
     }
     return true;
@@ -160,25 +187,22 @@ struct Tracer {
   }
 };
 
+// counts: the products, then the adds and subs of the product tasks and
+// of the phases of adds, over the setup and the steps.
 template <class F>
 void trace(const int32_t* point, const int32_t* bits, int64_t n_bits,
-           uint64_t* hash, int64_t* products, int32_t* out) {
+           uint64_t* hash, int64_t* counts, int32_t* out) {
   using L = jac::Ladder<F>;
   constexpr int kRows = 3 * F::kE;
   std::vector<uint32_t> s(L::kScratch * kWords);
-  host::poison(s);
-  for (int e = 0; e < kRows; ++e) {
-    load(point + e * kLimbs, s.data(), L::kBase + e);
-    uint32_t w[kWords];
-    jac::infinity_element<F>(e, w);
-    fp12::st(s.data(), L::kAcc + e, w);
-  }
+  start<F>(s, point);
   *hash = 0xcbf29ce484222325ull;
-  *products = 0;
-  const Tracer run{&s, hash, products};
+  counts[0] = counts[1] = counts[2] = 0;
+  const Tracer run{&s, hash, counts, counts + 1, counts + 2};
+  run(typename L::Setup{});
   for (int64_t i = 0; i < n_bits; ++i) {
-    s[L::kBit * kWords] = jac::mask(bits[i] == 1);
-    jac::step<F>(run);
+    s[L::kBitWord] = jac::mask(bits[i] == 1);
+    run(typename L::Step{});
   }
   for (int e = 0; e < kRows; ++e) store(s.data(), L::kAcc + e, out + e * kLimbs);
 }
@@ -203,33 +227,42 @@ extern "C" int host_masked_sum(int field, const int32_t* points,
 
 extern "C" void host_trace(int field, const int32_t* point,
                            const int32_t* bits, int64_t n_bits,
-                           uint64_t* hash, int64_t* products, int32_t* out) {
+                           uint64_t* hash, int64_t* counts, int32_t* out) {
   if (field == 1) {
-    trace<jac::Fp>(point, bits, n_bits, hash, products, out);
+    trace<jac::Fp>(point, bits, n_bits, hash, counts, out);
   } else {
-    trace<jac::Fp2>(point, bits, n_bits, hash, products, out);
+    trace<jac::Fp2>(point, bits, n_bits, hash, counts, out);
   }
 }
 
-// The lane's scratch elements and threads (scalar_mul.cu) and an add's
-// scratch elements (g2_masked_sum.cu), by field.
+// The lane's scratch elements, threads and phases a step (scalar_mul.cu)
+// and an add's scratch elements (g2_masked_sum.cu), by field.
+template <class F>
+void sizes(int32_t* out) {
+  using L = jac::Ladder<F>;
+  out[0] = L::kScratch;
+  out[1] = L::kThreads;
+  out[2] = jac::SumAdd<F>::kScratch;
+  out[3] = L::kPhases;
+}
+
 extern "C" void host_sizes(int field, int32_t* out) {
   if (field == 1) {
-    out[0] = jac::Ladder<jac::Fp>::kScratch;
-    out[1] = jac::Ladder<jac::Fp>::kThreads;
-    out[2] = jac::SumAdd<jac::Fp>::kScratch;
+    sizes<jac::Fp>(out);
   } else {
-    out[0] = jac::Ladder<jac::Fp2>::kScratch;
-    out[1] = jac::Ladder<jac::Fp2>::kThreads;
-    out[2] = jac::SumAdd<jac::Fp2>::kScratch;
+    sizes<jac::Fp2>(out);
   }
 }
 """
 
 _ORDERS = {"forward": 0, "reverse": 1, "isolated": 2}
 _FIELDS = {"g1": (1, TCV.FP_OPS, (3, 32)), "g2": (2, TCV.FP2_OPS, (3, 2, 32))}
-# Montgomery products a step: the doubling's and the addition's
-_STEP_PRODUCTS = {"g1": 7 + 16, "g2": 16 + 43}
+# Montgomery products of the ladder's setup (Z2^2 and Z2^3 of the base
+# point) and of a step: 8 squares and 13 products (the doubling's 5 and
+# 1, the addition's 3 and 12, Z1 (2 Z2) in place of its Z2^2, Z2^3 and
+# (Z1 + Z2)^2), over Fp2 schoolbook (3 and 4 Montgomery products)
+_SETUP_PRODUCTS = {"g1": 1 + 1, "g2": 3 + 4}
+_STEP_PRODUCTS = {"g1": 8 + 13, "g2": 8 * 3 + 13 * 4}
 
 rng = random.Random(0x5CA1)
 
@@ -406,41 +439,100 @@ def test_masked_sum_equals_the_plain_version(host_lib, field, order):
                 (n, mask.tolist())))
 
 
+def _trace(lib, field, point, bits):
+    """(hash, [products, adds and subs of the product tasks, of the
+    phases of adds], the point) of the ladder on one lane."""
+    code, _, tail = _FIELDS[field]
+    b = np.asarray(bits, dtype=np.int32)
+    h = np.zeros(1, dtype=np.uint64)
+    counts = np.zeros(3, dtype=np.int64)
+    out = np.zeros(tail, dtype=np.int32)
+    pt = np.ascontiguousarray(point.numpy())
+    lib.host_trace(code, _ptr(pt), _ptr(b), len(bits), _ptr(h),
+                   _ptr(counts), _ptr(out))
+    return int(h[0]), counts.tolist(), out
+
+
 def test_the_ladder_runs_the_same_products_for_every_scalar(host_lib):
     """A scalar of all zeros, one of all ones and a random one: the same
     phases, tasks and product elements in the same order (one hash of the
-    sequence), the same count of products, 23 a step over Fp and 59 over
-    Fp2, and each the plain version's point."""
-    for field, (code, ops, tail) in _FIELDS.items():
+    sequence), the same count of products, the setup's 2 and 21 a step
+    over Fp, 7 and 76 over Fp2, and each the plain version's point."""
+    for field, (_, ops, _) in _FIELDS.items():
         point = _doubled(field, _points(field, 3)[:1])[0]
         seen = set()
         for bits in ([0] * 16, [1] * 16, [rng.randrange(2) for _ in range(16)]):
-            b = np.asarray(bits, dtype=np.int32)
-            h = np.zeros(1, dtype=np.uint64)
-            n = np.zeros(1, dtype=np.int64)
-            out = np.zeros(tail, dtype=np.int32)
-            pt = np.ascontiguousarray(point.numpy())
-            host_lib.host_trace(code, _ptr(pt), _ptr(b), 16, _ptr(h), _ptr(n),
-                                _ptr(out))
-            assert n[0] == 16 * _STEP_PRODUCTS[field]
+            h, counts, out = _trace(host_lib, field, point, bits)
+            assert counts[0] == (_SETUP_PRODUCTS[field]
+                                 + 16 * _STEP_PRODUCTS[field])
             np.testing.assert_array_equal(
-                out, TCV.scalar_mul_reference(point, torch.from_numpy(b),
-                                              ops).numpy())
-            seen.add(int(h[0]))
+                out, TCV.scalar_mul_reference(
+                    point, torch.tensor(bits, dtype=torch.int32),
+                    ops).numpy())
+            seen.add(h)
         assert len(seen) == 1, field
 
 
+@pytest.mark.parametrize("field", sorted(_FIELDS))
+def test_the_ladders_product_tasks_only_load_their_operands(host_lib, field):
+    """Every product task of the ladder loads its two operands and makes
+    no modular add or sub (phases.cuh's counted add, sub, add_lazy,
+    sub_lazy), in the setup and in every step; the phases of adds make
+    them all, the same number a step whatever the bits."""
+    point = _doubled(field, _points(field, 3)[:1])[0]
+    linear = set()
+    for bits in ([0] * 8, [1] * 8, [rng.randrange(2) for _ in range(8)]):
+        _, (products, product_ops, linear_ops), _ = _trace(
+            host_lib, field, point, bits)
+        assert products == _SETUP_PRODUCTS[field] + 8 * _STEP_PRODUCTS[field]
+        assert product_ops == 0
+        linear.add(linear_ops)
+    assert len(linear) == 1 and linear.pop() > 0
+
+
 def test_scratch_and_threads_fit_the_kernels(host_lib):
-    """What the kernels' sources state: a lane's scratch area of 48 and
-    108 elements (2,304 and 5,184 B) on 32 and 64 threads, an add's of 50
-    elements over Fp and 113 over Fp2 (5,424 B), so that 16 warps and 256
-    kept points, or 8 warps and 512, fit the 227 KB of a block."""
+    """What the kernels' sources state: a lane's scratch area of 53 and
+    139 elements (2,544 and 6,672 B) on 32 and 64 threads, 12 phases a
+    step (six rounds of products, each followed by a phase of adds), an
+    add's of 50 elements over Fp and 113 over Fp2 (5,424 B), so that 16
+    warps and 256 kept points, or 8 warps and 512, fit the 227 KB of a
+    block."""
     got = {}
     for field, (code, _, _) in _FIELDS.items():
-        out = np.zeros(3, dtype=np.int32)
+        out = np.zeros(4, dtype=np.int32)
         host_lib.host_sizes(code, _ptr(out))
         got[field] = tuple(out)
-    assert got == {"g1": (48, 32, 50), "g2": (108, 64, 113)}
+    assert got == {"g1": (53, 32, 50, 12), "g2": (139, 64, 113, 12)}
     elem = 48
     assert (256 * 6 + 16 * 113) * elem <= 232448
     assert (512 * 6 + 8 * 113) * elem == 190848 <= 232448
+
+
+def test_the_timed_build_takes_the_kernels_arguments_and_no_launch():
+    """kernels/scalar_mul.py phase_clocks, the ladders' timed build: its
+    record's size is the source's, its entry points take the kernels'
+    arguments and the record, and off the card it raises as the kernels
+    do, counting no launch."""
+    from harmony_tpu_torch.kernels import scalar_mul as KS
+
+    src = (_build.CSRC / "scalar_mul.cu").read_text()
+    assert f"constexpr int kMaxPhases = {KS.MAX_PHASES};" in src
+    assert "clocks (int64,\n// 4 + 2 kMaxPhases words)" in src
+    assert KS.CLOCK_WORDS == 4 + 2 * KS.MAX_PHASES == 52
+    for name in ("scalar_mul_g1", "scalar_mul_g2"):
+        timed = _build._ENTRY_POINTS[f"harmony_{name}_phases"]
+        plain = _build._ENTRY_POINTS[f"harmony_{name}"]
+        assert timed == [ctypes.c_void_p] + plain
+    before = dict(KS.LAUNCHES)
+    meta = {"device": "meta", "dtype": torch.int32}
+    for name, tail in (("scalar_mul_g1", (3, 32)),
+                       ("scalar_mul_g2", (3, 2, 32))):
+        for device in ("cpu", "meta"):
+            pts = torch.zeros(2, *tail, dtype=torch.int32, device=device)
+            bits = torch.zeros(255, dtype=torch.int32, device=device)
+            with pytest.raises(ValueError, match="CUDA"):
+                KS.phase_clocks(name, pts, bits)
+        with pytest.raises(TypeError, match="int32"):
+            KS.phase_clocks(name, torch.empty(2, *tail, device="meta"),
+                            torch.empty(255, **meta))
+    assert KS.LAUNCHES == before
