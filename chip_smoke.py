@@ -68,7 +68,9 @@ Run from the root of a checkout on a machine with one CUDA card.  It
 7. holds the signing ops' kernels (scalar_mul_g1, scalar_mul_g2,
    g2_masked_sum) against their plain versions on the card, bit for bit,
    and times them (sign_kernels_phase, sign_timing_phase; the ladders'
-   step also by phase, from a timed build of each, ladder_phases); then
+   step also by phase, from a timed build of each, ladder_phases; the G2
+   sum at 200 and 1,024 points, also by part of its adds, from its timed
+   build, g2_sum_timing); then
    drives the signing path through ops/bls.py with its launch counts from
    zero (signing_phase): 256 keys derived and 256 signatures made on the
    card, one payload's cofactor cleared, the aggregate of 150 of 200;
@@ -2557,8 +2559,7 @@ def consumers_phase(seed):
 
 SIGN_KERNELS = ("scalar_mul_g1", "scalar_mul_g2", "g2_masked_sum")
 SIGN_KEYS = 256  # keys derived and signatures made on the card
-# lanes the ladders are timed at; the G2 sum is timed on a quorum's 150
-# of 200 signatures (bucket 256)
+# lanes the ladders are timed at (the G2 sum's shapes: G2_SUM_TIMED)
 SIGN_TIMED_LANES = (1, 8, 64, 256)
 
 
@@ -2603,6 +2604,117 @@ def g2_sum_work(points, mask):
     return roofline(nbytes, products * MONT_IMAD)
 
 
+def g2_chain(rng, n):
+    """n distinct G2 points P + i D (P, D random multiples of the
+    generator), Jacobian with Z = 1 on the card: quicker on the host than
+    n scalar multiplications."""
+    from harmony_tpu_torch.ops import bls as B
+    from harmony_tpu_torch.ops import interop as I
+    from harmony_tpu_torch.ref.curve import G2_GEN, g2
+    from harmony_tpu_torch.ref.params import R_ORDER
+
+    p, d = (g2.mul(G2_GEN, rng.randrange(1, R_ORDER)) for _ in range(2))
+    aff = [p]
+    while len(aff) < n:
+        aff.append(g2.add(aff[-1], d))
+    return B._affine_to_jacobian_g2(I.g2_batch_affine(aff).cuda())
+
+
+# g2_masked_sum is timed on a quorum's 150 of 200 signatures (bucket 256)
+# and on 700 of 1,024 (the widest bucket)
+G2_SUM_TIMED = {"200 points": (COMMITTEE, QUORUM),
+                "1024 points": (1024, 700)}
+
+
+def g2_sum_timing(seed):
+    """g2_masked_sum at G2_SUM_TIMED's shapes, each held bit for bit
+    against the plain version first: wrapper-inclusive ms by CUDA events,
+    the kernel's device time by torch.profiler, the bound from this run's
+    inputs, the wrapper's host cost per call, the plain version's ms (one
+    call), and, where the kernel has one (kernels/g2_masked_sum.py
+    phase_clocks), the timed build's record: the ns of each part of the
+    adds of the block that wrote the sum, summed over its levels, at the
+    SM clock of the run.  Also its ptxas line and SASS instructions.  It
+    imports harmony_tpu_torch as it finds it, so it times another tree's
+    kernel too: ``import chip_smoke`` from this file with that tree's
+    root first on sys.path, build, call this.  Returns {shape: timings}."""
+    import torch
+
+    from harmony_tpu_torch.kernels import g2_masked_sum as KG2
+    from harmony_tpu_torch.ops import bls as B
+    from harmony_tpu_torch.ops import curve as CV
+    from harmony_tpu_torch.ops import interop as I
+    from harmony_tpu_torch.ref import native as NB
+    from harmony_tpu_torch.ref.curve import G2_GEN
+    from harmony_tpu_torch.ref.params import R_ORDER
+
+    rng = random.Random(seed + 25)
+    card = card_line()
+    log(f"[{card}] ptxas, g2_masked_sum: {ptxas_report()['g2_masked_sum']}; "
+        f"{sass_sizes()['g2_masked_sum']} SASS instructions")
+    # independent random signatures, as aggregate_sigs sums them (Z = 1):
+    # no two partial sums meet equal, so no add doubles
+    check(NB.available(), "the native host library is not loaded")
+    sigs = [NB.g2_mul(G2_GEN, rng.randrange(1, R_ORDER))
+            for _ in range(max(n for n, _ in G2_SUM_TIMED.values()))]
+    sigs = B._affine_to_jacobian_g2(I.g2_batch_affine(sigs).cuda())
+    out = {}
+    for shape, (n, chosen) in G2_SUM_TIMED.items():
+        jac = sigs[:n].contiguous()
+        mask = [0] * n
+        for i in rng.sample(range(n), chosen):
+            mask[i] = 1
+        mask = torch.tensor(mask, dtype=torch.int32).cuda()
+        with plain_fp():
+            want, plain_ms = once_ms(
+                lambda: CV.masked_sum_reference(jac, mask, CV.FP2_OPS))
+
+        def kernel(jac=jac, mask=mask):
+            return KG2.g2_masked_sum(jac, mask)
+
+        _compare(f"g2_masked_sum, {chosen} of {n} points (timed)", kernel(),
+                 want, {"max_abs_err": 0})
+        try:
+            device_ms = 1e-3 * device_us(kernel, "g2_masked_sum", 3)
+        except AssertionError as e:
+            log(f"g2_masked_sum at {shape}: device time not measured: {e}")
+            device_ms = None
+        bound_ms, bound_by = g2_sum_work(jac, mask)
+        t = out[shape] = {
+            "points": n, "selected": chosen, "ms": cuda_ms(kernel, 5),
+            "device_ms": device_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "host_us_per_call": host_us(kernel, 10),
+            "plain_ms": plain_ms}
+        device = "not measured" if device_ms is None else \
+            f"{device_ms:.6f} ms"
+        log(f"[{card}] g2_masked_sum at {shape} ({chosen} selected): "
+            f"{t['ms']:.6f} ms with the wrapper, {device} on the device, "
+            f"bound {bound_ms:.6f} ms ({bound_by}), host "
+            f"{t['host_us_per_call']:.3f} us per call; plain version "
+            f"{plain_ms:.3f} ms")
+        if not hasattr(KG2, "phase_clocks"):
+            continue
+        KG2.phase_clocks(jac, mask)  # warm
+        got, clocks = KG2.phase_clocks(jac, mask)
+        _compare(f"g2_masked_sum's timed build, {chosen} of {n} points", got,
+                 want, {"max_abs_err": 0})
+        c = clocks.cpu().tolist()
+        levels, stages, cycles, ns = c[:4]
+        check(levels == (n - 1).bit_length() and stages > 0 and cycles > 0
+              and ns > 0, f"g2_masked_sum's clocks {c[:4]}")
+        ghz = cycles / ns
+        t["timed"] = {"levels": levels, "stages": stages, "ns": ns,
+                      "sm_ghz": ghz, "parts_ns": {
+                          part: c[4 + i] / ghz
+                          for i, part in enumerate(KG2.PARTS)}}
+        log(f"[{card}] g2_masked_sum's timed build at {shape}: the block "
+            f"that wrote the sum ran {levels} levels in {stages} stages in "
+            f"{ns / 1e3:.3f} us (SM clock {ghz:.4f} GHz); ns by part: "
+            + ", ".join(f"{part} {v:.1f}" for part, v
+                        in t["timed"]["parts_ns"].items()))
+    return out
+
+
 def once_ms(fn):
     """(result, device ms) of one call of fn(), by CUDA events."""
     import torch
@@ -2626,7 +2738,9 @@ def sign_kernels_phase(seed, stats):
     each (a 255-bit key; its plain run timed once); the G2 sum on a point
     twice, a point and its negative and infinity under masks of every,
     none and one point and words other than 0 and 1 (5 points, 1 and 0),
-    on 150 of 200 signatures, and on 1,024 points.  Returns the plain
+    on 150 of 200 signatures, on 1,024 points, at 17 and 513 points (the
+    kernel's partition over blocks uneven), and with equal operands in
+    the last block's levels (at 200 and 1,024 points).  Returns the plain
     versions' ms at full width."""
     import torch
 
@@ -2698,6 +2812,26 @@ def sign_kernels_phase(seed, stats):
             mask[i] = 1
         sums(jac, torch.tensor([mask], dtype=torch.int32).cuda(),
              f"{chosen} of {n} points, each key {n // 16} times")
+    # the kernel's partition: uneven at 17 points (8 blocks of 4 leaves,
+    # 2, then one of 2) and 513 (256 blocks, 64, 16, 4, then one of 4);
+    # and equal operands in the last block's levels: P at leaves 0 and 1
+    # and Q at 16 and 17 alone (P and Q meet at half 16, before the last
+    # stage, whose inputs hold the leaves 0, 1, 2 and 3 mod 4) make its
+    # partials 0 and 1 both P + Q, which it doubles; P at 0 and 1 alone
+    # meet on the last level
+    chain = g2_chain(rng, 1024)
+    for n in (17, 513):
+        mask = torch.tensor([[rng.choice((1, 1, 1, 0, 2, -1))
+                              for _ in range(n)]], dtype=torch.int32).cuda()
+        sums(chain[:n].contiguous(), mask, f"{n} points, uneven partition")
+    for n in (COMMITTEE, 1024):
+        pts = chain[:n].clone()
+        pts[1], pts[17] = pts[0], pts[16]
+        masks = torch.zeros(2, n, dtype=torch.int32)
+        masks[0, [0, 1, 16, 17]] = 1
+        masks[1, [0, 1]] = 1
+        sums(pts, masks.cuda(), f"{n} points, equal operands in the last "
+             f"block")
     log(f"the signing kernels against their plain versions: "
         f"{time.perf_counter() - started:.3f} s")
     return plain_ms
@@ -2763,14 +2897,13 @@ def ladder_phases(seed):
 def sign_timing_phase(seed, plain_ms):
     """Each ladder's step by phase (ladder_phases); the ladders at 1, 8, 64
     and 256 lanes of 255-bit keys (sign's and derive_pubkeys' shapes), the
-    cofactor's 507 bits at 1 lane, and the G2 sum of 150 of 200
-    signatures: wrapper-inclusive ms by CUDA events, the
-    kernel's own device time by torch.profiler, the bound from this run's
-    inputs, and the wrapper's host cost per call; each held bit for bit
-    first, against the plain version where it was run."""
+    cofactor's 507 bits at 1 lane: wrapper-inclusive ms by CUDA events,
+    the kernel's own device time by torch.profiler, the bound from this
+    run's inputs, and the wrapper's host cost per call; each held bit for
+    bit first, against the plain version where it was run; then the G2
+    sum of 150 of 200 and of 700 of 1,024 signatures (g2_sum_timing)."""
     import torch
 
-    from harmony_tpu_torch.kernels import g2_masked_sum as KG2
     from harmony_tpu_torch.kernels import scalar_mul as KS
     from harmony_tpu_torch.ops import _constants as C
     from harmony_tpu_torch.ops import bls as B
@@ -2801,19 +2934,6 @@ def sign_timing_phase(seed, plain_ms):
     cases.append(("scalar_mul_g2", "1 lane, 507 bits", 1,
                   lambda: KS.scalar_mul_g2(h[None], h2),
                   ladder_work("scalar_mul_g2", h[None], h2)))
-    aff = I.g2_batch_affine([g2.mul(G2_GEN, rng.randrange(1, R_ORDER))
-                             for _ in range(COMMITTEE)]).cuda()
-    jac = B._affine_to_jacobian_g2(aff)
-    mask = [0] * COMMITTEE
-    for i in rng.sample(range(COMMITTEE), QUORUM):
-        mask[i] = 1
-    mask = torch.tensor(mask, dtype=torch.int32).cuda()
-    cases.append(("g2_masked_sum", "200 points", COMMITTEE,
-                  lambda: KG2.g2_masked_sum(jac, mask),
-                  g2_sum_work(jac, mask)))
-    with plain_fp():
-        _, plain_ms["g2_masked_sum"] = once_ms(
-            lambda: B.CV.masked_sum_reference(jac, mask, B.CV.FP2_OPS))
     card = card_line()
     for op, shape, n, kernel, (bound_ms, bound_by) in cases:
         try:
@@ -2837,9 +2957,9 @@ def sign_timing_phase(seed, plain_ms):
             f"wrapper, {device} on the device, bound {bound_ms:.6f} ms "
             f"({bound_by}), host {t['host_us_per_call']:.3f} us per call")
     for op, shape in (("scalar_mul_g1", "1 lanes"), ("scalar_mul_g2",
-                                                      "1 lanes"),
-                      ("g2_masked_sum", "200 points")):
+                                                      "1 lanes")):
         timings[op][shape]["plain_ms"] = plain_ms[op]
+    timings["g2_masked_sum"].update(g2_sum_timing(seed))
     check(C.H2.bit_length() == len(h2) == 507, "the cofactor's bits")
     log(f"the signing kernels timed: {time.perf_counter() - started:.3f} s")
     return timings

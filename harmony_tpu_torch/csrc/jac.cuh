@@ -1,10 +1,10 @@
 // Jacobian points over Fp (G1) or Fp2 (the G2 twist), as plans of phases
-// fixed at compile time (phases.cuh): the doubling and the addition of
-// harmony_tpu/ops/curve.py and the add of its masked_sum, which
-// g2_masked_sum.cu runs on one warp per add, and the step of its
+// fixed at compile time (phases.cuh): the step of harmony_tpu/ops/curve.py
 // scalar_mul (namespace ladder), which scalar_mul.cu runs on one block per
-// lane; the host test (tests/test_torch_scalar_mul_host.py) runs the same
-// plans under g++.
+// lane, and the add of its masked_sum (namespace sum), which
+// g2_masked_sum.cu runs on two warps an add, with the tree's partition
+// over blocks; the host tests (tests/test_torch_scalar_mul_host.py,
+// tests/test_torch_g2_sum_host.py) run the same plans under g++.
 //
 // A Jacobian point's limbs depend on the formula that made it, so the
 // values here are the reference's: dbl-2009-l for the doubling,
@@ -18,16 +18,12 @@
 // The field is a template parameter (Fp or Fp2 below), so G1 and G2 share
 // one plan.  A field value is kE consecutive elements of the scratch area
 // (12 words each, fp12::ld/st); a product's Montgomery products go to
-// elements of their own and a linear phase forms the value from them.
-//
-// The masked sum's add: Fp2 products are Karatsuba (3 Montgomery
-// products), squares the complex method (2), as in miller.cuh, their
-// operands formed by the round's tasks; the doubling is 3 rounds of
-// products (Fp2: 7, 6, 3 Montgomery products; Fp: 3, 3, 1), each followed
-// by a phase of adds; the addition is 5 rounds (Fp2: 6, 12, 11, 8, 6; Fp:
-// 3, 4, 4, 3, 2) with 3 phases of adds between them, then one phase that
-// forms the result and its selects.  The ladder's step: see namespace
-// ladder below.
+// elements of their own and a phase of adds forms the value from them.
+// Both plans are rounds of uniform products: each product task loads its
+// two operands and stores to a third element, by a table, so that the
+// card runs every round through one copy of the product code; each round
+// is followed by one phase of adds, a task per component, which forms the
+// values and the next round's operands.
 //
 // Constant time: the scalar multiplication sees secret keys.  Its step
 // computes the doubling and the addition whatever the bit, every phase and
@@ -55,72 +51,14 @@ using fp12::ld;
 using fp12::st;
 using fp384::kWords;
 
-// --- the fields ------------------------------------------------------------
-
-FP384_FN void copy(const uint32_t a[kWords], uint32_t out[kWords]) {
-  FP384_UNROLL
-  for (int j = 0; j < kWords; ++j) out[j] = a[j];
-}
+// --- the fields: a value is kE elements ------------------------------------
 
 struct Fp {
-  static constexpr int kE = 1;    // elements of a value
-  static constexpr int kMul = 1;  // Montgomery products of a product
-  static constexpr int kSqr = 1;  // and of a square (its value)
-
-  // The operands of Montgomery product h of the product of the values at
-  // a and b; of the square of the value at a; of the square of a + b.
-  static FP384_FN void mul_operands(const uint32_t* s, int a, int b, int,
-                                    uint32_t x[kWords], uint32_t y[kWords]) {
-    ld(s, a, x);
-    ld(s, b, y);
-  }
-  static FP384_FN void sqr_operands(const uint32_t* s, int a, int,
-                                    uint32_t x[kWords], uint32_t y[kWords]) {
-    ld(s, a, x);
-    copy(x, y);
-  }
-  static FP384_FN void sqr_sum_operands(const uint32_t* s, int a, int b, int,
-                                        uint32_t x[kWords],
-                                        uint32_t y[kWords]) {
-    uint32_t u[kWords], v[kWords];
-    ld(s, a, u);
-    ld(s, b, v);
-    phases::add(u, v, x);
-    copy(x, y);
-  }
-  // Component c of a product's value from its products at r.
-  static FP384_FN void mul_value(const uint32_t* s, int r, int,
-                                 uint32_t out[kWords]) {
-    ld(s, r, out);
-  }
+  static constexpr int kE = 1;
 };
 
 struct Fp2 {
   static constexpr int kE = 2;
-  static constexpr int kMul = 3;  // Karatsuba: a0 b0, a1 b1, (a0 + a1)(b0 + b1)
-  static constexpr int kSqr = 2;  // (a0 + a1)(a0 - a1), a0 (a1 + a1)
-
-  static FP384_FN void mul_operands(const uint32_t* s, int a, int b, int h,
-                                    uint32_t x[kWords], uint32_t y[kWords]) {
-    phases::kara(s, a, h, x);
-    phases::kara(s, b, h, y);
-  }
-  static FP384_FN void sqr_operands(const uint32_t* s, int a, int c,
-                                    uint32_t x[kWords], uint32_t y[kWords]) {
-    phases::csqr(s, a, c, x, y);
-  }
-  static FP384_FN void sqr_sum_operands(const uint32_t* s, int a, int b,
-                                        int c, uint32_t x[kWords],
-                                        uint32_t y[kWords]) {
-    uint32_t u0[kWords], u1[kWords];
-    phases::ld_add(s, a, b, u0);
-    phases::ld_add(s, a + 1, b + 1, u1);
-    phases::csqr(u0, u1, c, x, y);
-  }
-  static FP384_FN void mul_value(const uint32_t* s, int r, int c,
-                                 uint32_t out[kWords]) {
-    phases::combine(s, r, c, out);
-  }
 };
 
 // --- masks: selects without a branch ----------------------------------------
@@ -144,372 +82,13 @@ FP384_FN void infinity_element(int k, uint32_t w[kWords]) {
   for (int j = 0; j < kWords; ++j) w[j] = is_one ? one[j] : 0u;
 }
 
-// Whether the value at e is 0, reading all of it.
-template <class F>
-FP384_FN bool is_zero(const uint32_t* s, int e) {
-  uint32_t any = 0;
-  FP384_UNROLL
-  for (int j = 0; j < F::kE * kWords; ++j) any |= s[e * kWords + j];
-  return any == 0;
-}
-
-// --- the parts of a phase ---------------------------------------------------
-//
-// A round of products is Round<P...>, each P a field product whose kTasks
-// Montgomery products take consecutive tasks; a phase of adds is
-// Linears<L...>, each L kTasks tasks of its own (usually one a component).
-// Task k of either is found by its place in the list.
-
-template <class F, int A, int B, int Out>
-struct Mul {  // the products of A B into Out ... Out + kMul - 1
-  static constexpr int kTasks = F::kMul;
-  static FP384_FN int operands(int h, const uint32_t* s, uint32_t x[kWords],
-                               uint32_t y[kWords]) {
-    F::mul_operands(s, A, B, h, x, y);
-    return Out + h;
-  }
-};
-
-template <class F, int A, int Out>
-struct Sqr {  // A^2 into Out
-  static constexpr int kTasks = F::kSqr;
-  static FP384_FN int operands(int c, const uint32_t* s, uint32_t x[kWords],
-                               uint32_t y[kWords]) {
-    F::sqr_operands(s, A, c, x, y);
-    return Out + c;
-  }
-};
-
-template <class F, int A, int B, int Out>
-struct SqrSum {  // (A + B)^2 into Out
-  static constexpr int kTasks = F::kSqr;
-  static FP384_FN int operands(int c, const uint32_t* s, uint32_t x[kWords],
-                               uint32_t y[kWords]) {
-    F::sqr_sum_operands(s, A, B, c, x, y);
-    return Out + c;
-  }
-};
-
-template <class P>
-FP384_FN void operands_if(int& k, int& out, const uint32_t* s,
-                          uint32_t x[kWords], uint32_t y[kWords]) {
-  if (k >= 0 && k < P::kTasks) out = P::operands(k, s, x, y);
-  k -= P::kTasks;
-}
-
-template <class... Ps>
-struct Round : phases::Products<(Ps::kTasks + ...)> {
-  static FP384_FN int operands(int k, const uint32_t* s, uint32_t x[kWords],
-                               uint32_t y[kWords]) {
-    int out = -1;
-    (operands_if<Ps>(k, out, s, x, y), ...);
-    return out;
-  }
-};
-
-template <class L>
-FP384_FN void task_if(int& k, uint32_t* s) {
-  if (k >= 0 && k < L::kTasks) L::task(k, s);
-  k -= L::kTasks;
-}
-
-template <class... Ls>
-struct Linears : phases::Linear<(Ls::kTasks + ...)> {
-  static FP384_FN void task(int k, uint32_t* s) { (task_if<Ls>(k, s), ...); }
-};
-
-template <class F, int R, int V>
-struct Value {  // V = the product at R
-  static constexpr int kTasks = F::kE;
-  static FP384_FN void task(int c, uint32_t* s) {
-    uint32_t w[kWords];
-    F::mul_value(s, R, c, w);
-    st(s, V + c, w);
-  }
-};
-
-template <class F, int R, int V>
-struct TwiceValue {  // V = 2 (the product at R)
-  static constexpr int kTasks = F::kE;
-  static FP384_FN void task(int c, uint32_t* s) {
-    uint32_t w[kWords], r[kWords];
-    F::mul_value(s, R, c, w);
-    phases::add(w, w, r);
-    st(s, V + c, r);
-  }
-};
-
-template <class F, int A, int B, int V>
-struct Sum {  // V = A + B
-  static constexpr int kTasks = F::kE;
-  static FP384_FN void task(int c, uint32_t* s) {
-    uint32_t r[kWords];
-    phases::ld_add(s, A + c, B + c, r);
-    st(s, V + c, r);
-  }
-};
-
-template <class F, int A, int V>
-struct Triple {  // V = 3 A
-  static constexpr int kTasks = F::kE;
-  static FP384_FN void task(int c, uint32_t* s) {
-    uint32_t a[kWords], t[kWords], r[kWords];
-    ld(s, A + c, a);
-    phases::add(a, a, t);
-    phases::add(t, a, r);
-    st(s, V + c, r);
-  }
-};
-
-// --- the doubling: dbl-2009-l (curve.py dbl), the point at In into Out ------
-//
-//   round  products                       then
-//   1      A = X^2, B = Y^2, Y Z           X + B, E = 3A, Z3 = 2 Y Z
-//   2      C = B^2, T = (X + B)^2, E^2     D = 2 (T - A - C), X3 = E^2 - 2D,
-//                                          D - X3
-//   3      E (D - X3)                      Y3 = E (D - X3) - 8C
-//
-// Intermediates from element T on.
-
-template <class F, int T>
-struct DblSlots {
-  static constexpr int E = F::kE, M = F::kMul;
-  static constexpr int kA = T, kB = kA + E, kYZ = kB + E, kXB = kYZ + M,
-                       kE3 = kXB + E, kC = kE3 + E, kTs = kC + E,
-                       kF = kTs + E, kDX = kF + E, kEDX = kDX + E,
-                       kEnd = kEDX + M;
-};
-
-template <class F, class S, int OutX>
-struct DblX3 {  // D = 2 ((T - A) - C), X3 = E^2 - 2D, D - X3
-  static constexpr int kTasks = F::kE;
-  static FP384_FN void task(int c, uint32_t* s) {
-    uint32_t t[kWords], u[kWords], d[kWords], x3[kWords];
-    phases::ld_sub(s, S::kTs + c, S::kA + c, t);
-    ld(s, S::kC + c, u);
-    phases::sub(t, u, t);
-    phases::add(t, t, d);
-    phases::add(d, d, u);
-    ld(s, S::kF + c, t);
-    phases::sub(t, u, x3);
-    st(s, OutX + c, x3);
-    phases::sub(d, x3, t);
-    st(s, S::kDX + c, t);
-  }
-};
-
-template <class F, class S, int OutY>
-struct DblY3 {  // Y3 = E (D - X3) - 8C
-  static constexpr int kTasks = F::kE;
-  static FP384_FN void task(int c, uint32_t* s) {
-    uint32_t w[kWords], t[kWords];
-    ld(s, S::kC + c, t);
-    phases::add(t, t, t);
-    phases::add(t, t, t);
-    phases::add(t, t, t);
-    F::mul_value(s, S::kEDX, c, w);
-    phases::sub(w, t, w);
-    st(s, OutY + c, w);
-  }
-};
-
-template <class F, int In, int Out, int T>
-struct Dbl {
-  using S = DblSlots<F, T>;
-  static constexpr int E = F::kE;
-  static constexpr int kEnd = S::kEnd;
-  static constexpr int X = In, Y = In + E, Z = In + 2 * E;
-  using P1 = Round<Sqr<F, X, S::kA>, Sqr<F, Y, S::kB>, Mul<F, Y, Z, S::kYZ>>;
-  using L1 = Linears<Sum<F, X, S::kB, S::kXB>, Triple<F, S::kA, S::kE3>,
-                     TwiceValue<F, S::kYZ, Out + 2 * E>>;
-  using P2 = Round<Sqr<F, S::kB, S::kC>, Sqr<F, S::kXB, S::kTs>,
-                   Sqr<F, S::kE3, S::kF>>;
-  using L2 = Linears<DblX3<F, S, Out>>;
-  using P3 = Round<Mul<F, S::kE3, S::kDX, S::kEDX>>;
-  using L3 = Linears<DblY3<F, S, Out + E>>;
-  using Plan = phases::Plan<P1, L1, P2, L2, P3, L3>;
-};
-
-// --- the addition: add-2007-bl (curve.py add), p1 at In1 and p2 at In2 ------
-//
-//   round  products                               then
-//   1      Z1^2, Z2^2, (Z1 + Z2)^2                 -
-//   2      U1 = X1 Z2^2, U2 = X2 Z1^2, Z2 Z2^2,    U1, Z2^3, Z1^3;
-//          Z1 Z1^2                                 H = U2 - U1, 2H;
-//                                                  (Z1 + Z2)^2 - Z1^2 - Z2^2
-//   3      S1 = Y1 Z2^3, S2 = Y2 Z1^3, I = (2H)^2,  S1, R = 2 (S2 - S1), Z3
-//          Z3 = ((Z1 + Z2)^2 - Z1^2 - Z2^2) H
-//   4      J = H I, V = U1 I, R^2                  X3 = R^2 - J - 2V, V - X3
-//   5      R (V - X3), S1 J                        (AddOut) Y3 = R (V - X3)
-//                                                  - 2 S1 J, the selects
-//
-// Intermediates from element T on; the formula's X3 and Z3 stay in kAX and
-// kAZ, its Y3 is formed by AddOut.
-
-template <class F, int T>
-struct AddSlots {
-  static constexpr int E = F::kE, M = F::kMul;
-  static constexpr int kZ1Z1 = T, kZ2Z2 = kZ1Z1 + E, kZZ = kZ2Z2 + E,
-                       kU1p = kZZ + E, kU2p = kU1p + M, kZ2Cp = kU2p + M,
-                       kZ1Cp = kZ2Cp + M, kU1 = kZ1Cp + M, kZ2C = kU1 + E,
-                       kZ1C = kZ2C + E, kH = kZ1C + E, kH2 = kH + E,
-                       kZZ3 = kH2 + E, kS1p = kZZ3 + E, kS2p = kS1p + M,
-                       kI = kS2p + M, kZ3p = kI + E, kS1 = kZ3p + M,
-                       kR = kS1 + E, kAZ = kR + E, kJp = kAZ + E,
-                       kVp = kJp + M, kRR = kVp + M, kJ = kRR + E,
-                       kAX = kJ + E, kVX = kAX + E, kRVX = kVX + E,
-                       kS1J = kRVX + M, kEnd = kS1J + M;
-};
-
-template <class F, class S>
-struct AddH {  // H = U2 - U1, 2H
-  static constexpr int kTasks = F::kE;
-  static FP384_FN void task(int c, uint32_t* s) {
-    uint32_t u1[kWords], u2[kWords], h[kWords];
-    F::mul_value(s, S::kU1p, c, u1);
-    F::mul_value(s, S::kU2p, c, u2);
-    phases::sub(u2, u1, h);
-    st(s, S::kH + c, h);
-    phases::add(h, h, u1);
-    st(s, S::kH2 + c, u1);
-  }
-};
-
-template <class F, class S>
-struct AddZZ {  // (Z1 + Z2)^2 - Z1^2 - Z2^2
-  static constexpr int kTasks = F::kE;
-  static FP384_FN void task(int c, uint32_t* s) {
-    uint32_t t[kWords], u[kWords];
-    phases::ld_sub(s, S::kZZ + c, S::kZ1Z1 + c, t);
-    ld(s, S::kZ2Z2 + c, u);
-    phases::sub(t, u, t);
-    st(s, S::kZZ3 + c, t);
-  }
-};
-
-template <class F, class S>
-struct AddR {  // R = 2 (S2 - S1)
-  static constexpr int kTasks = F::kE;
-  static FP384_FN void task(int c, uint32_t* s) {
-    uint32_t s1[kWords], s2[kWords], r[kWords];
-    F::mul_value(s, S::kS1p, c, s1);
-    F::mul_value(s, S::kS2p, c, s2);
-    phases::sub(s2, s1, r);
-    phases::add(r, r, s1);
-    st(s, S::kR + c, s1);
-  }
-};
-
-template <class F, class S>
-struct AddX3 {  // J, V, X3 = (R^2 - J) - 2V, V - X3
-  static constexpr int kTasks = F::kE;
-  static FP384_FN void task(int c, uint32_t* s) {
-    uint32_t j[kWords], v[kWords], t[kWords], u[kWords];
-    F::mul_value(s, S::kJp, c, j);
-    F::mul_value(s, S::kVp, c, v);
-    st(s, S::kJ + c, j);
-    ld(s, S::kRR + c, t);
-    phases::sub(t, j, t);
-    phases::add(v, v, u);
-    phases::sub(t, u, t);
-    st(s, S::kAX + c, t);
-    phases::sub(v, t, u);
-    st(s, S::kVX + c, u);
-  }
-};
-
-template <class F, int In1, int In2, int T>
-struct AddCore {
-  using S = AddSlots<F, T>;
-  static constexpr int E = F::kE;
-  static constexpr int kEnd = S::kEnd;
-  static constexpr int X1 = In1, Y1 = In1 + E, Z1 = In1 + 2 * E;
-  static constexpr int X2 = In2, Y2 = In2 + E, Z2 = In2 + 2 * E;
-  using P1 = Round<Sqr<F, Z1, S::kZ1Z1>, Sqr<F, Z2, S::kZ2Z2>,
-                   SqrSum<F, Z1, Z2, S::kZZ>>;
-  using P2 = Round<Mul<F, X1, S::kZ2Z2, S::kU1p>, Mul<F, X2, S::kZ1Z1, S::kU2p>,
-                   Mul<F, Z2, S::kZ2Z2, S::kZ2Cp>,
-                   Mul<F, Z1, S::kZ1Z1, S::kZ1Cp>>;
-  using L2 = Linears<Value<F, S::kU1p, S::kU1>, Value<F, S::kZ2Cp, S::kZ2C>,
-                     Value<F, S::kZ1Cp, S::kZ1C>, AddH<F, S>, AddZZ<F, S>>;
-  using P3 = Round<Mul<F, Y1, S::kZ2C, S::kS1p>, Mul<F, Y2, S::kZ1C, S::kS2p>,
-                   Sqr<F, S::kH2, S::kI>, Mul<F, S::kZZ3, S::kH, S::kZ3p>>;
-  using L3 = Linears<Value<F, S::kS1p, S::kS1>, AddR<F, S>,
-                     Value<F, S::kZ3p, S::kAZ>>;
-  using P4 = Round<Mul<F, S::kH, S::kI, S::kJp>, Mul<F, S::kU1, S::kI, S::kVp>,
-                   Sqr<F, S::kR, S::kRR>>;
-  using L4 = Linears<AddX3<F, S>>;
-  using P5 = Round<Mul<F, S::kR, S::kVX, S::kRVX>,
-                   Mul<F, S::kS1, S::kJ, S::kS1J>>;
-  using Plan = phases::Plan<P1, P2, L2, P3, L3, P4, L4, P5>;
-};
-
-// What decides the add's result: infinite operands, equal X of finite
-// points (H = 0) and equal Y (R = 0, not gated by finiteness, as curve.py's).
-struct Flags {
-  bool inf1, inf2, same_x, same_y;
-};
-
-template <class F, int In1, int In2, int T>
-FP384_FN Flags flags(const uint32_t* s) {
-  using S = AddSlots<F, T>;
-  Flags f;
-  f.inf1 = is_zero<F>(s, In1 + 2 * F::kE);
-  f.inf2 = is_zero<F>(s, In2 + 2 * F::kE);
-  f.same_x = is_zero<F>(s, S::kH) && !f.inf1 && !f.inf2;
-  f.same_y = is_zero<F>(s, S::kR);
-  return f;
-}
-
-// The add's result, element k of 3 kE (X, Y, Z), into Out: the formula's
-// point; the doubling's at DblAt where both X and Y are equal (DblAt >= 0,
-// curve.py add with handle_equal=True); then the cascade.  With Bit >= 0,
-// word 0 of element Bit is a mask of the step's bit, and the result is
-// the add's where it is all ones and p1 (the doubled accumulator) where it
-// is 0: scalar_mul's select.  Every task forms its element from the same
-// loads and masks, whatever the flags and the bit.
-template <class F, int In1, int In2, int T, int Out, int DblAt, int Bit>
-struct AddOut : phases::Linear<3 * F::kE> {
-  using S = AddSlots<F, T>;
-  static FP384_FN void task(int k, uint32_t* s) {
-    const int e = k / F::kE, c = k % F::kE;
-    const Flags f = flags<F, In1, In2, T>(s);
-    uint32_t w[kWords], t[kWords], u[kWords];
-    if (e == 0) {
-      ld(s, S::kAX + c, w);
-    } else if (e == 1) {  // R (V - X3) - 2 S1 J
-      F::mul_value(s, S::kRVX, c, w);
-      F::mul_value(s, S::kS1J, c, t);
-      phases::add(t, t, u);
-      phases::sub(w, u, w);
-    } else {
-      ld(s, S::kAZ + c, w);
-    }
-    if constexpr (DblAt >= 0) {
-      ld(s, DblAt + k, t);
-      pick(mask(f.same_x && f.same_y), t, w);
-    }
-    infinity_element<F>(k, t);
-    pick(mask(f.same_x && !f.same_y), t, w);
-    ld(s, In2 + k, t);
-    pick(mask(f.inf1), t, w);
-    ld(s, In1 + k, t);
-    pick(mask(f.inf2 && !f.inf1), t, w);
-    if constexpr (Bit >= 0) {
-      const uint32_t bit = s[Bit * kWords];
-      FP384_UNROLL
-      for (int j = 0; j < kWords; ++j) w[j] = (w[j] & bit) | (t[j] & ~bit);
-    }
-    st(s, Out + k, w);
-  }
-};
-
 // --- scalar_mul's ladder: a step in six rounds of uniform products ---------
 //
 // The step computes acc = 2 acc, then acc + pt where the bit is set: the
 // same field values as dbl-2009-l, add-2007-bl and the select cascade
-// above, on a plan of its own, so that the card runs every round of
-// products through one copy of the product code (scalar_mul.cu):
+// (the top of this file), on a plan of its own, so that the card runs
+// every round of products through one copy of the product code
+// (scalar_mul.cu):
 //  - Every product task loads x and y from two elements and stores the
 //    product in a third, by a table (ladder::Table): no task forms an
 //    operand.  Over Fp2 the products are schoolbook (a b from a0 b0, a1 b1,
@@ -533,7 +112,7 @@ struct AddOut : phases::Linear<3 * F::kE> {
 //      5      J = H I, V = U1 I, R^2
 //      6      R (V - X3), S1 J (X3: the addition's)
 //    each followed by one phase of adds; the last forms Y3 and the selects
-//    (AddOut's, from flags the phases of adds wrote once) into acc: 12
+//    (curve.py add's, from flags the phases of adds wrote once) into acc: 12
 //    phases a step.
 //  - A phase of adds has one task per component (Fp2: 2), each doing the
 //    component's whole work, and the selects one a coordinate and
@@ -861,7 +440,7 @@ struct Adds5 {
 };
 
 // After round 6, element k of 3 kE (X, Y, Z) of the new accumulator: the
-// addition's (Y3 = R (V - X3) - 2 S1 J), then AddOut's cascade from the
+// addition's (Y3 = R (V - X3) - 2 S1 J), then curve.py add's cascade from the
 // flags, then the doubled point where the bit's mask is 0.
 template <class F>
 struct Out : phases::Linear<3 * F::kE> {
@@ -945,35 +524,414 @@ struct Ladder {
   static constexpr int kThreads = ladder::most_threads<F>();
 };
 
-// --- masked_sum's add: p1 + p2 with the doubling where they are equal -------
+// --- masked_sum's add: p1 + p2 in five rounds of uniform products -----------
 //
-// One add's scratch area: p1, p2, the result, the doubling of p1, the
-// doubling's and the addition's intermediates.  The caller puts p1 and
-// p2 in place and takes the result from kOut.
+// curve.py add (handle_equal=True) on a plan of the ladder's kind, so that
+// g2_masked_sum.cu runs every round of every add through one product site:
+//  - Every product task only loads its operands, by a table (make_table:
+//    rounds 0-4 the addition's, 5-7 the doubling's); Fp2 products are
+//    schoolbook, as the ladder's.  With 16 groups of four threads an add,
+//    every round is one pass whatever its products, so Karatsuba's fewer
+//    products would save no pass and need operand sums.
+//  - Z1 Z2, doubled, takes the place of (Z1 + Z2)^2 - Z1^2 - Z2^2 (the
+//    same field value):
+//      round  products (Fp2: 10, 16, 15, 11, 8; Fp: 3, 4, 4, 3, 2)
+//      1      Z1^2, Z2^2, Z1 Z2
+//      2      U1 = X1 Z2^2, U2 = X2 Z1^2, Z2^3 = Z2 Z2^2, Z1^3 = Z1 Z1^2
+//      3      S1 = Y1 Z2^3, S2 = Y2 Z1^3, I = (2H)^2, Z3 = (2 Z1 Z2) H
+//      4      J = H I, V = U1 I, R^2
+//      5      R (V - X3), S1 J
+//    each of the first four followed by one phase of adds (the values, the
+//    flags, the next round's operands); a task loads all it reads before
+//    its first store, which a later load could not pass.
+//  - Where X and Y are equal (H = 0 and R = 0, both finite: a signature
+//    twice), the doubling of p1 runs after round 5: the ladder's rounds
+//    1-3 of dbl-2009-l (Fp2: 10, 9, 4 products), each followed by its
+//    adds.  The data are public signatures, so this is a branch.
+//  - Then one phase forms Y3 = R (V - X3) - 2 S1 J and the result with the
+//    select cascade, in place of p1, a task a coordinate and component.
 
+namespace sum {
+
+constexpr int kRounds = 8;  // the addition's 5, then the doubling's 3
+constexpr int kAddRounds = 5;
+constexpr int kDblRound = 5;
+// What g2_masked_sum.cu's block sums: 4 leaves (or partials), 2 adds on
+// the first level, 128 threads (why: g2_masked_sum.cu).
+constexpr int kBlockLeaves = 4;
+
+// One add's scratch area, in elements: p1 (where the result goes), p2,
+// the doubling of p1, the flags (a word per component: all ones where
+// that component of Z1, of Z2, of H or of R is 0), each round's products
+// and values, the doubling's last.
 template <class F>
-struct SumAdd {
-  static constexpr int E = F::kE;
-  static constexpr int kIn1 = 0, kIn2 = 3 * E, kOut = 6 * E, kDbl = 9 * E,
-                       kT = 12 * E;
-  using Dbl = jac::Dbl<F, kIn1, kDbl, kT>;
-  using Add = AddCore<F, kIn1, kIn2, Dbl::kEnd>;
-  using Out = AddOut<F, kIn1, kIn2, Dbl::kEnd, kOut, kDbl, -1>;
-  using OutPlan = phases::Plan<Out>;
-  static constexpr int kScratch = Add::kEnd;
+struct Slots {
+  static constexpr int E = F::kE, M = ladder::kMulOut<F>,
+                       Q = ladder::kSqrOut<F>;
+  static constexpr int kP1 = 0, kP2 = 3 * E, kDbl = 6 * E, kFlags = 9 * E,
+                       // round 1 and its adds
+                       kZ1Z1p = kFlags + 1, kZ2Z2p = kZ1Z1p + Q,
+                       kZ1Z2p = kZ2Z2p + Q, kZ1Z1 = kZ1Z2p + M,
+                       kZ2Z2 = kZ1Z1 + E, kZZ3 = kZ2Z2 + E,
+                       // round 2
+                       kU1p = kZZ3 + E, kU2p = kU1p + M, kZ2Cp = kU2p + M,
+                       kZ1Cp = kZ2Cp + M, kU1 = kZ1Cp + M, kH = kU1 + E,
+                       kH2 = kH + E, kZ2C = kH2 + E, kZ1C = kZ2C + E,
+                       // round 3
+                       kS1p = kZ1C + E, kS2p = kS1p + M, kIp = kS2p + M,
+                       kZ3p = kIp + Q, kS1 = kZ3p + M, kR = kS1 + E,
+                       kI = kR + E, kAZ = kI + E,
+                       // round 4
+                       kJp = kAZ + E, kVp = kJp + M, kRRp = kVp + M,
+                       kJ = kRRp + Q, kAX = kJ + E, kVX = kAX + E,
+                       // round 5
+                       kRVXp = kVX + E, kS1Jp = kRVXp + M,
+                       // the doubling of p1
+                       kDAp = kS1Jp + M, kDBp = kDAp + Q, kDYZp = kDBp + Q,
+                       kDA = kDYZp + M, kDB = kDA + E, kDXB = kDB + E,
+                       kDE3 = kDXB + E, kDCp = kDE3 + E, kDTp = kDCp + Q,
+                       kDFp = kDTp + Q, kDDX = kDFp + Q, kDC8 = kDDX + E,
+                       kDEDXp = kDC8 + E, kEnd = kDEDXp + M;
+  // words of kFlags
+  static constexpr int kInf1 = 0, kInf2 = 2, kHZero = 4, kRZero = 6;
 };
 
-// Runs the add on scratch area s: the formula, the doubling only where the
-// operands are equal (every thread that runs the plans reads the same
-// flags), then the result.
-template <class F, class Run>
-FP384_FN bool sum_add(const Run& run, const uint32_t* s) {
-  using A = SumAdd<F>;
-  bool ok = run(typename A::Add::Plan{});
-  const Flags f = flags<F, A::kIn1, A::kIn2, A::Dbl::kEnd>(s);
-  if (f.same_x && f.same_y) ok = run(typename A::Dbl::Plan{}) && ok;
-  return run(typename A::OutPlan{}) && ok;
+template <class F>
+constexpr ladder::Table make_table() {
+  using S = Slots<F>;
+  constexpr int E = F::kE;
+  ladder::Filler<F> b{};
+  b.r = 0;
+  b.sqr(S::kP1 + 2 * E, S::kZ1Z1p);
+  b.sqr(S::kP2 + 2 * E, S::kZ2Z2p);
+  b.mul(S::kP1 + 2 * E, S::kP2 + 2 * E, S::kZ1Z2p);
+  b.r = 1;
+  b.mul(S::kP1, S::kZ2Z2, S::kU1p);
+  b.mul(S::kP2, S::kZ1Z1, S::kU2p);
+  b.mul(S::kP2 + 2 * E, S::kZ2Z2, S::kZ2Cp);
+  b.mul(S::kP1 + 2 * E, S::kZ1Z1, S::kZ1Cp);
+  b.r = 2;
+  b.mul(S::kP1 + E, S::kZ2C, S::kS1p);
+  b.mul(S::kP2 + E, S::kZ1C, S::kS2p);
+  b.sqr(S::kH2, S::kIp);
+  b.mul(S::kZZ3, S::kH, S::kZ3p);
+  b.r = 3;
+  b.mul(S::kH, S::kI, S::kJp);
+  b.mul(S::kU1, S::kI, S::kVp);
+  b.sqr(S::kR, S::kRRp);
+  b.r = 4;
+  b.mul(S::kR, S::kVX, S::kRVXp);
+  b.mul(S::kS1, S::kJ, S::kS1Jp);
+  b.r = kDblRound;  // the doubling of p1
+  b.sqr(S::kP1, S::kDAp);
+  b.sqr(S::kP1 + E, S::kDBp);
+  b.mul(S::kP1 + E, S::kP1 + 2 * E, S::kDYZp);
+  b.r = kDblRound + 1;
+  b.sqr(S::kDB, S::kDCp);
+  b.sqr(S::kDXB, S::kDTp);
+  b.sqr(S::kDE3, S::kDFp);
+  b.r = kDblRound + 2;
+  b.mul(S::kDE3, S::kDDX, S::kDEDXp);
+  return b.t;
 }
+
+static_assert(kRounds == ladder::kRounds, "the ladder's table holds them");
+
+// Round R of the table as a phase of products (the host runs these; the
+// card runs the same table through one product site, g2_masked_sum.cu).
+template <class F, int R>
+struct Round : phases::Products<make_table<F>().n[R]> {
+  static FP384_FN int operands(int k, const uint32_t* s, uint32_t x[kWords],
+                               uint32_t y[kWords]) {
+    constexpr ladder::Table t = make_table<F>();
+    ld(s, t.task[R][k].x, x);
+    ld(s, t.task[R][k].y, y);
+    return t.task[R][k].out;
+  }
+};
+
+template <class F>
+FP384_FN void flag(uint32_t* s, int word, const uint32_t w[kWords]) {
+  s[Slots<F>::kFlags * kWords + word] = mask(ladder::zero(w));
+}
+
+// A flag of the add: all ones where every component's word is.
+template <class F>
+FP384_FN uint32_t all(const uint32_t* s, int word) {
+  uint32_t m = ~0u;
+  FP384_UNROLL
+  for (int c = 0; c < F::kE; ++c) m &= s[Slots<F>::kFlags * kWords + word + c];
+  return m;
+}
+
+// After round 1: Z1^2, Z2^2, 2 Z1 Z2 (an operand: below 2p); Z1 = 0 and
+// Z2 = 0.
+template <class F>
+struct Adds1 {
+  using S = Slots<F>;
+  static FP384_FN void run(int c, uint32_t* s) {
+    uint32_t a[kWords], b[kWords], u[kWords], v[kWords], z1[kWords],
+        z2[kWords];
+    ladder::value<F, true>(s, S::kZ1Z1p, c, a);
+    ladder::value<F, true>(s, S::kZ2Z2p, c, b);
+    ladder::value<F, false>(s, S::kZ1Z2p, c, u);
+    ld(s, S::kP1 + 2 * F::kE + c, z1);
+    ld(s, S::kP2 + 2 * F::kE + c, z2);
+    phases::add_lazy(u, u, v);
+    st(s, S::kZ1Z1 + c, a);
+    st(s, S::kZ2Z2 + c, b);
+    st(s, S::kZZ3 + c, v);
+    flag<F>(s, S::kInf1 + c, z1);
+    flag<F>(s, S::kInf2 + c, z2);
+  }
+};
+
+// After round 2: U1, H = U2 - U1 and H = 0, 2H (an operand), Z2^3, Z1^3.
+template <class F>
+struct Adds2 {
+  using S = Slots<F>;
+  static FP384_FN void run(int c, uint32_t* s) {
+    uint32_t u1[kWords], u2[kWords], z2c[kWords], z1c[kWords], h[kWords],
+        h2[kWords];
+    ladder::value<F, false>(s, S::kU1p, c, u1);
+    ladder::value<F, false>(s, S::kU2p, c, u2);
+    ladder::value<F, false>(s, S::kZ2Cp, c, z2c);
+    ladder::value<F, false>(s, S::kZ1Cp, c, z1c);
+    phases::sub(u2, u1, h);
+    phases::add_lazy(h, h, h2);
+    st(s, S::kU1 + c, u1);
+    st(s, S::kH + c, h);
+    st(s, S::kH2 + c, h2);
+    st(s, S::kZ2C + c, z2c);
+    st(s, S::kZ1C + c, z1c);
+    flag<F>(s, S::kHZero + c, h);
+  }
+};
+
+// After round 3: S1, R = 2 (S2 - S1) and R = 0, I, Z3.
+template <class F>
+struct Adds3 {
+  using S = Slots<F>;
+  static FP384_FN void run(int c, uint32_t* s) {
+    uint32_t s1[kWords], s2[kWords], i[kWords], z3[kWords], r[kWords];
+    ladder::value<F, false>(s, S::kS1p, c, s1);
+    ladder::value<F, false>(s, S::kS2p, c, s2);
+    ladder::value<F, true>(s, S::kIp, c, i);
+    ladder::value<F, false>(s, S::kZ3p, c, z3);
+    phases::sub(s2, s1, r);
+    phases::add(r, r, r);
+    st(s, S::kS1 + c, s1);
+    st(s, S::kR + c, r);
+    st(s, S::kI + c, i);
+    st(s, S::kAZ + c, z3);
+    flag<F>(s, S::kRZero + c, r);
+  }
+};
+
+// After round 4: J, X3 = (R^2 - J) - 2V, V - X3.
+template <class F>
+struct Adds4 {
+  using S = Slots<F>;
+  static FP384_FN void run(int c, uint32_t* s) {
+    uint32_t j[kWords], v[kWords], t[kWords], u[kWords];
+    ladder::value<F, false>(s, S::kJp, c, j);
+    ladder::value<F, false>(s, S::kVp, c, v);
+    ladder::value<F, true>(s, S::kRRp, c, t);
+    phases::sub(t, j, t);
+    phases::add(v, v, u);
+    phases::sub(t, u, t);
+    st(s, S::kJ + c, j);
+    st(s, S::kAX + c, t);
+    phases::sub(v, t, u);
+    st(s, S::kVX + c, u);
+  }
+};
+
+// The doubling's first round's adds: A = X^2, B = Y^2, X + B and E = 3A
+// (operands), Z3 = 2 Y Z.
+template <class F>
+struct Dbl1 {
+  using S = Slots<F>;
+  static FP384_FN void run(int c, uint32_t* s) {
+    uint32_t a[kWords], b[kWords], x[kWords], yz[kWords], t[kWords],
+        u[kWords];
+    ladder::value<F, true>(s, S::kDAp, c, a);
+    ladder::value<F, true>(s, S::kDBp, c, b);
+    ladder::value<F, false>(s, S::kDYZp, c, yz);
+    ld(s, S::kP1 + c, x);
+    st(s, S::kDA + c, a);
+    st(s, S::kDB + c, b);
+    phases::add_lazy(x, b, u);
+    st(s, S::kDXB + c, u);
+    phases::add(a, a, t);
+    phases::add_lazy(t, a, u);
+    st(s, S::kDE3 + c, u);
+    phases::add(yz, yz, u);
+    st(s, S::kDbl + 2 * F::kE + c, u);
+  }
+};
+
+// Its second: X3 = (F - 4T) + 4 (A + C), D - X3 with D = 2 (T - (A + C)),
+// 8C.
+template <class F>
+struct Dbl2 {
+  using S = Slots<F>;
+  static FP384_FN void run(int c, uint32_t* s) {
+    uint32_t a[kWords], cc[kWords], t[kWords], f[kWords], ac[kWords],
+        d[kWords], u[kWords], w[kWords];
+    ladder::value<F, true>(s, S::kDCp, c, cc);
+    ladder::value<F, true>(s, S::kDTp, c, t);
+    ladder::value<F, true>(s, S::kDFp, c, f);
+    ld(s, S::kDA + c, a);
+    phases::add(a, cc, ac);
+    phases::sub(t, ac, u);
+    phases::add(u, u, d);  // D
+    phases::add(t, t, u);
+    phases::add(u, u, u);
+    phases::sub(f, u, f);  // F - 4T
+    phases::add(ac, ac, u);
+    phases::add(u, u, u);
+    phases::add(f, u, w);  // X3
+    st(s, S::kDbl + c, w);
+    phases::sub(d, w, u);
+    st(s, S::kDDX + c, u);
+    phases::add(cc, cc, u);
+    phases::add(u, u, u);
+    phases::add(u, u, u);
+    st(s, S::kDC8 + c, u);
+  }
+};
+
+// Its third: Y3 = E (D - X3) - 8C.
+template <class F>
+struct Dbl3 {
+  using S = Slots<F>;
+  static FP384_FN void run(int c, uint32_t* s) {
+    uint32_t u[kWords], v[kWords], w[kWords];
+    ladder::value<F, false>(s, S::kDEDXp, c, u);
+    ld(s, S::kDC8 + c, v);
+    phases::sub(u, v, w);
+    st(s, S::kDbl + F::kE + c, w);
+  }
+};
+
+// Whether the add's operands are equal: H = 0 and R = 0, both finite.
+template <class F>
+FP384_FN bool doubles(const uint32_t* s) {
+  using S = Slots<F>;
+  const uint32_t inf = all<F>(s, S::kInf1) | all<F>(s, S::kInf2);
+  return (all<F>(s, S::kHZero) & all<F>(s, S::kRZero) & ~inf) != 0;
+}
+
+// After round 5 (and the doubling), element k of 3 kE (X, Y, Z) of the
+// result, into p1's: the addition's (Y3 = R (V - X3) - 2 S1 J), then the
+// cascade from the flags.  The doubling's point is read where it did not
+// run too, and then never picked.
+template <class F>
+struct Out : phases::Linear<3 * F::kE> {
+  using S = Slots<F>;
+  static FP384_FN void task(int k, uint32_t* s) {
+    const int e = k / F::kE, c = k % F::kE;
+    uint32_t w[kWords], t[kWords], u[kWords];
+    if (e == 1) {
+      ladder::value<F, false>(s, S::kRVXp, c, w);
+      ladder::value<F, false>(s, S::kS1Jp, c, t);
+      phases::add(t, t, u);
+      phases::sub(w, u, w);
+    } else {
+      ld(s, e == 0 ? S::kAX + c : S::kAZ + c, w);
+    }
+    const uint32_t inf1 = all<F>(s, S::kInf1), inf2 = all<F>(s, S::kInf2);
+    const uint32_t same_x = all<F>(s, S::kHZero) & ~inf1 & ~inf2;
+    const uint32_t same_y = all<F>(s, S::kRZero);
+    ld(s, S::kDbl + k, t);
+    pick(same_x & same_y, t, w);
+    infinity_element<F>(k, t);
+    pick(same_x & ~same_y, t, w);
+    ld(s, S::kP2 + k, t);
+    pick(inf1, t, w);
+    ld(s, S::kP1 + k, t);
+    pick(inf2 & ~inf1, t, w);
+    st(s, S::kP1 + k, w);
+  }
+};
+
+// The phase of adds after round R (0-3, and the doubling's 5-7).
+template <class F, int R>
+using AddsAfter = typename std::tuple_element<
+    (R < kAddRounds ? R : R - kDblRound + 4),
+    std::tuple<ladder::PerComponent<F, Adds1<F>>,
+               ladder::PerComponent<F, Adds2<F>>,
+               ladder::PerComponent<F, Adds3<F>>,
+               ladder::PerComponent<F, Adds4<F>>,
+               ladder::PerComponent<F, Dbl1<F>>,
+               ladder::PerComponent<F, Dbl2<F>>,
+               ladder::PerComponent<F, Dbl3<F>>>>::type;
+
+template <class F>
+using AddPlan =
+    phases::Plan<Round<F, 0>, AddsAfter<F, 0>, Round<F, 1>, AddsAfter<F, 1>,
+                 Round<F, 2>, AddsAfter<F, 2>, Round<F, 3>, AddsAfter<F, 3>,
+                 Round<F, 4>>;
+template <class F>
+using DblPlan = phases::Plan<Round<F, 5>, AddsAfter<F, 5>, Round<F, 6>,
+                             AddsAfter<F, 6>, Round<F, 7>, AddsAfter<F, 7>>;
+
+// One add on scratch area s, p1 and p2 in place, the sum into p1, by a
+// runner of plans (the host's): the addition, the doubling where the
+// operands are equal, the result.
+template <class F, class Run>
+FP384_FN bool add(const Run& run, const uint32_t* s) {
+  bool ok = run(AddPlan<F>{});
+  if (doubles<F>(s)) ok = run(DblPlan<F>{}) && ok;
+  return run(phases::Plan<Out<F>>{}) && ok;
+}
+
+// --- masked_sum's tree over blocks ------------------------------------------
+//
+// masked_sum adds point k + half into point k at each level, so for a
+// power of two b that divides half, the points whose index is congruent
+// to g mod b form a closed subtree, whose root is point g after the level
+// where half = b.  A stage of the sum runs on `blocks` blocks: block g
+// sums the inputs g, g + blocks, g + 2 blocks, ... (its `leaves`) by the
+// same levels, in the same order, and leaves partial g.  Stage 0's inputs
+// are the leaves; stage s + 1's are stage s's partials, and its block g
+// is the block of stage s that finishes last among those whose partial is
+// congruent to g mod its blocks.  The last stage has one block and gives
+// the sum.  Each block sums at most `most` inputs.
+
+struct Stage {
+  int width;   // inputs: the leaves, or the partials of the stage before
+  int blocks;  // blocks, and the partials they leave
+  int leaves;  // inputs a block sums: width / blocks
+};
+
+FP384_FN Stage stage(int width, int most) {
+  const int blocks = width > most ? width / most : 1;
+  return Stage{width, blocks, width / blocks};
+}
+
+// What the sum of `size` leaves needs besides its blocks: a counter for
+// each block of every stage after the first (the blocks of the stage
+// before that have finished it), a partial point for each block of every
+// stage but the last; and the most adds a block runs at once.
+struct Needs {
+  int counters, partials, adds;
+};
+
+FP384_FN Needs needs(int size, int most) {
+  Needs n{0, 0, 1};
+  Stage st = stage(size, most);
+  for (;;) {
+    if (st.leaves / 2 > n.adds) n.adds = st.leaves / 2;
+    if (st.blocks == 1) return n;
+    n.partials += st.blocks;
+    st = stage(st.blocks, most);
+    n.counters += st.blocks;
+  }
+}
+
+}  // namespace sum
 
 // The number of leaves: n padded to a power of two (1 for n <= 1), as
 // masked_sum pads with infinity.

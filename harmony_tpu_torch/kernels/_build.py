@@ -107,7 +107,10 @@ _ENTRY_POINTS = {"harmony_mont_mul": _signature(3),
                      4, ctypes.c_int64, ctypes.c_int32),
                  "harmony_scalar_mul_g2_phases": _signature(
                      4, ctypes.c_int64, ctypes.c_int32),
-                 "harmony_g2_masked_sum": _signature(3, ctypes.c_int64)}
+                 "harmony_g2_masked_sum": _signature(
+                     4, ctypes.c_int64, ctypes.c_int64),
+                 "harmony_g2_masked_sum_phases": _signature(
+                     5, ctypes.c_int64, ctypes.c_int64)}
 
 _lib = None
 _lock = threading.Lock()

@@ -4,8 +4,10 @@
 (one lane's ladder: a setup, then a step a bit of six rounds of products
 that only load their operands, each followed by a phase of adds, the
 last of which selects by the bit) and ``g2_masked_sum.cu`` (an add of
-the tree, with the doubling where its operands are equal) run on the
-card, over Fp and Fp2 by one template.  Outside nvcc they are plain C++,
+the tree in five such rounds, with the doubling where its operands are
+equal; its partition over blocks is held in
+tests/test_torch_g2_sum_host.py) run on the card, over Fp and Fp2 by one
+template.  Outside nvcc they are plain C++,
 so here g++ compiles them through a small host harness, with the header
 the kernel build generates, and ctypes loads the result.  The harness is
 the plans' runner of tests/test_torch_fp12_host.py: each phase's tasks
@@ -103,13 +105,13 @@ int ladder(const int32_t* points, const int32_t* bits, int64_t n_bits,
   return 0;
 }
 
-// The masked sum as g2_masked_sum.cu runs it: the leaves selected by the
-// mask and padded with (1, 1, 0), then each level's adds, point k + half
-// into point k, each on its own scratch area.
+// The masked sum by the add of g2_masked_sum.cu, on one scratch area: the
+// leaves selected by the mask and padded with (1, 1, 0), then each
+// level's adds, point k + half into point k.
 template <class F>
 int masked_sum(const int32_t* points, const int32_t* mask, int64_t n,
                int32_t* out, int order) {
-  using A = jac::SumAdd<F>;
+  using A = jac::sum::Slots<F>;
   constexpr int kPoint = 3 * F::kE;
   const int size = jac::leaves(n);
   std::vector<uint32_t> leaves(size * kPoint * kWords);
@@ -124,18 +126,18 @@ int masked_sum(const int32_t* points, const int32_t* mask, int64_t n,
       }
     }
   }
-  std::vector<uint32_t> s(A::kScratch * kWords);
+  std::vector<uint32_t> s(A::kEnd * kWords);
   const host::Runner run{&s, order};
   for (int half = size / 2; half >= 1; half /= 2) {
     for (int k = 0; k < half; ++k) {
       host::poison(s);
       for (int j = 0; j < kPoint * kWords; ++j) {
-        s[A::kIn1 * kWords + j] = leaves[k * kPoint * kWords + j];
-        s[A::kIn2 * kWords + j] = leaves[(k + half) * kPoint * kWords + j];
+        s[A::kP1 * kWords + j] = leaves[k * kPoint * kWords + j];
+        s[A::kP2 * kWords + j] = leaves[(k + half) * kPoint * kWords + j];
       }
-      if (!jac::sum_add<F>(run, s.data())) return -1;
+      if (!jac::sum::add<F>(run, s.data())) return -1;
       for (int j = 0; j < kPoint * kWords; ++j) {
-        leaves[k * kPoint * kWords + j] = s[A::kOut * kWords + j];
+        leaves[k * kPoint * kWords + j] = s[A::kP1 * kWords + j];
       }
     }
   }
@@ -242,7 +244,7 @@ void sizes(int32_t* out) {
   using L = jac::Ladder<F>;
   out[0] = L::kScratch;
   out[1] = L::kThreads;
-  out[2] = jac::SumAdd<F>::kScratch;
+  out[2] = jac::sum::Slots<F>::kEnd;
   out[3] = L::kPhases;
 }
 
@@ -494,18 +496,17 @@ def test_scratch_and_threads_fit_the_kernels(host_lib):
     """What the kernels' sources state: a lane's scratch area of 53 and
     139 elements (2,544 and 6,672 B) on 32 and 64 threads, 12 phases a
     step (six rounds of products, each followed by a phase of adds), an
-    add's of 50 elements over Fp and 113 over Fp2 (5,424 B), so that 16
-    warps and 256 kept points, or 8 warps and 512, fit the 227 KB of a
-    block."""
+    add's of 54 elements over Fp and 144 over Fp2 (6,912 B), so that a
+    block's 2 adds and the table of 128 words take 14,340 B of static
+    shared memory with the block's flag."""
     got = {}
     for field, (code, _, _) in _FIELDS.items():
         out = np.zeros(4, dtype=np.int32)
         host_lib.host_sizes(code, _ptr(out))
         got[field] = tuple(out)
-    assert got == {"g1": (53, 32, 50, 12), "g2": (139, 64, 113, 12)}
+    assert got == {"g1": (53, 32, 54, 12), "g2": (139, 64, 144, 12)}
     elem = 48
-    assert (256 * 6 + 16 * 113) * elem <= 232448
-    assert (512 * 6 + 8 * 113) * elem == 190848 <= 232448
+    assert 2 * 144 * elem + 128 * 4 + 4 == 14340
 
 
 def test_the_timed_build_takes_the_kernels_arguments_and_no_launch():
