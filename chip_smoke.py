@@ -80,7 +80,22 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    call held to its exact launches;
 8. drives parallel/mesh.py over a NCCL process group of world size 1
    (mesh_phase): each sharded_* equal to the unsharded call;
-9. prints a JSON line describing each kernel, then, last,
+9. drives the node's serving surface (serving_phase): a fresh process
+   runs aot.startup_warmup(), which must warm all 43 programs of the
+   manifest on the card with no failure, and then its first quorum check
+   at 200 slots, which must count a JIT hit and no miss; a second fresh
+   process makes the same first check without warmup, a third after the
+   kernel library's load and each kernel's first launch alone (the wall
+   ms of the load, of those launches, of each first and second check, and
+   of the median of 25 more, printed); then, in
+   this process, a resource governor forced PRESSURED, CRITICAL and back
+   to NORMAL: an INGRESS and a SYNC check bound for the card fail with
+   DeviceError as governor sheds and launch nothing, a CONSENSUS flush
+   launches exactly its 4 kernels, /readyz of the MetricsServer over
+   loopback reads 200, 503, 200, /metrics carries the port's families,
+   and prof.capture around one quorum check writes a Chrome trace that
+   parses (the kernels it saw printed, or none: not measured);
+10. prints a JSON line describing each kernel, then, last,
    {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line.  Without CUDA,
@@ -1801,17 +1816,18 @@ FLUSH_LAUNCHES = {"agg": ENTRY_KERNELS["agg_verify_batch_on_device"],
                   "single": ENTRY_KERNELS["verify_many_on_device"]}
 
 
-def node_clean(what):
+def node_clean(what, sheds=0):
     """After a phase that went through the node layer or an entry point:
-    no check fell back to the host, none was shed, the breaker is closed."""
+    no check fell back to the host, none was shed but the ``sheds`` the
+    run made on purpose, the breaker is closed."""
     from harmony_tpu_torch import device as D
     from harmony_tpu_torch.sched.scheduler import SHED
 
     check(D.COUNTERS["ref_fallback"] == 0,
           f"{what}: {D.COUNTERS['ref_fallback']} checks fell back to the "
           f"host path")
-    check(SHED.total() == 0, f"{what}: the scheduler shed {SHED.total()} "
-          f"checks")
+    check(SHED.total() == sheds, f"{what}: the scheduler shed "
+          f"{SHED.total()} checks, not {sheds}")
     check(D.BREAKER.state == "closed",
           f"{what}: the device breaker is {D.BREAKER.state}")
 
@@ -3128,9 +3144,275 @@ def mesh_phase(signing):
     return seconds
 
 
+SERVING_FAMILIES = ("harmony_aot_", "harmony_device_", "harmony_sched_",
+                    "harmony_governor_", "harmony_health_", "harmony_prof_")
+
+
+def qc_inputs(seed):
+    """A 200-slot committee's table, the bitmap of a quorum of 150, the
+    payload's hash and the quorum's aggregate signature, from ``seed``;
+    and the committee's keys."""
+    from harmony_tpu_torch import device as D
+    from harmony_tpu_torch.ref.hash_to_curve import hash_to_g2
+
+    rng = random.Random(seed)
+    sks, pks = build_committee(rng)
+    bits = [0] * COMMITTEE
+    for i in rng.sample(range(COMMITTEE), QUORUM):
+        bits[i] = 1
+    h = hash_to_g2(b"harmony shard 0 serving block seed %d" % seed)
+    table = D.CommitteeTable(pks)
+    check((table.n, table.size) == (COMMITTEE, 256), "committee bucket")
+    return table, bits, h, agg_sign(sks, bits, h), (sks, pks)
+
+
+def serving_child(mode, seed):
+    """One fresh process of the serving phase (``--serving-child warm``,
+    ``split`` or ``cold``), which imports only the port: with ``warm``,
+    ``aot.startup_warmup()`` first; with ``split``, the kernel library's
+    load (``_build.build()``) and then the first launch of each kernel of
+    the path alone, on one lane of zeros, each timed (after the CUDA
+    context's start); then the first quorum check at 200 slots (bucket
+    256) on the card, its wall ms and the JIT counters it moved, the
+    second's wall ms, and the median of MEDIAN_CALLS more.  Prints what
+    it saw as one JSON line, last."""
+    import torch
+
+    from harmony_tpu_torch import aot
+    from harmony_tpu_torch import device as D
+    from harmony_tpu_torch.kernels import _build
+
+    out = {"mode": mode}
+    if mode == "split":
+        from harmony_tpu_torch.kernels import final_exp, fp12_mul, \
+            g1_masked_sum, miller_loop
+
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _build.build()
+        out["load_ms"] = 1e3 * (time.perf_counter() - t0)
+
+        def z(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device="cuda")
+
+        f, p1, q1 = z(1, *_build.FP12), z(1, 2, 32), z(1, 2, 2, 32)
+        keys, mask = z(8, 2, 32), z(8)
+        out["first_launch_ms"] = {}
+        for name, run in (
+                ("g1_masked_sum",
+                 lambda: g1_masked_sum.g1_masked_sum(keys, mask)),
+                ("miller_loop", lambda: miller_loop.miller_loop(p1, q1)),
+                ("fp12_mul", lambda: fp12_mul.fp12_mul(f, f)),
+                ("final_exp", lambda: final_exp.final_exp(f))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            out["first_launch_ms"][name] = 1e3 * (time.perf_counter() - t0)
+    if mode == "warm":
+        t0 = time.perf_counter()
+        out["stats"] = aot.startup_warmup()
+        out["warmup_s"] = time.perf_counter() - t0
+        out["cache_events"] = {dict(k)["event"]: v for k, v
+                               in aot.CACHE_EVENTS._values.items()}
+        out["fallbacks"] = {dict(k)["reason"]: v for k, v
+                            in aot.FALLBACKS._values.items()}
+        out["after_warmup"] = (D.COUNTERS["ref_fallback"], D.BREAKER.state,
+                               D.BREAKER._failures)
+    table, bits, h, sig, _ = qc_inputs(seed)
+    fn = D.agg_verify_hashed_on_device
+    torch.cuda.synchronize()
+    jit = dict(D.JIT.items())
+    t0 = time.perf_counter()
+    ok = fn(table, bits, h, sig)
+    torch.cuda.synchronize()
+    out["first_ms"] = 1e3 * (time.perf_counter() - t0)
+    check(ok is True, "the first quorum check rejected a valid certificate")
+    out["jit"] = {k: n - jit[k] for k, n in D.JIT.items()}
+    t0 = time.perf_counter()
+    check(fn(table, bits, h, sig) is True, "the second quorum check "
+          "rejected a valid certificate")
+    torch.cuda.synchronize()
+    out["second_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["median_ms"] = median_ms(fn, table, bits, h, sig, want=True)
+    out["clean"] = (D.COUNTERS["ref_fallback"], D.BREAKER.state)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def run_serving_child(mode, seed):
+    """Run ``serving_child`` in a fresh process; what it saw."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--seed",
+           str(seed), "--serving-child", mode]
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=Path(__file__).resolve().parent)
+    check(done.returncode == 0, f"the serving child ({cmd[-1]}) failed "
+          f"({done.returncode}):\n{done.stdout[-4000:]}\n"
+          f"{done.stderr[-4000:]}")
+    out = json.loads(done.stdout.strip().splitlines()[-1])
+    out["process_s"] = time.perf_counter() - t0
+    return out
+
+
+def serving_phase(seed):
+    """The node's serving surface around the card.  Fresh process A runs
+    ``aot.startup_warmup()`` (every program of the manifest on the card),
+    then its first quorum check, which must count a JIT hit and no miss;
+    fresh process B makes the same first check without warmup, and C
+    after the kernel library's load and each kernel's first launch alone
+    (which splits B's).  In this process: a governor whose samples force
+    PRESSURED, then CRITICAL, then NORMAL after its dwell; an INGRESS and
+    a SYNC check bound for the card fail with DeviceError as governor
+    sheds and launch nothing, while a CONSENSUS flush launches exactly its
+    4 kernels; /readyz over loopback reads 200, 503, 200; /metrics carries
+    the families of the port's modules; ``prof.capture`` around one quorum
+    check writes a trace that parses."""
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    from harmony_tpu_torch import device as D
+    from harmony_tpu_torch import governor as GV
+    from harmony_tpu_torch import metrics as MT
+    from harmony_tpu_torch import prof, sched
+    from harmony_tpu_torch.ref.curve import g2
+    from harmony_tpu_torch.sched.scheduler import SHED, Lane
+
+    started = time.perf_counter()
+    warm = run_serving_child("warm", seed)
+    stats = warm["stats"]
+    check(stats is not None and stats["mode"] == "cuda"
+          and stats["programs"] == stats["warmed"] == 43
+          and stats["failed"] == 0, f"warmup: {stats}")
+    check(warm["after_warmup"] == [0, "closed", 0],
+          f"warmup left (ref_fallback, breaker, failures) "
+          f"{warm['after_warmup']}")
+    check(warm["jit"] == {"hit": 1, "miss": 0},
+          f"the warmed first quorum check moved the JIT counters "
+          f"{warm['jit']}")
+    cold = run_serving_child("cold", seed)
+    split = run_serving_child("split", seed)
+    for child in (cold, split):
+        check(child["jit"] == {"hit": 0, "miss": 1},
+              f"the {child['mode']} first quorum check moved the JIT "
+              f"counters {child['jit']}")
+    for child in (warm, cold, split):
+        check(child["clean"] == [0, "closed"],
+              f"a serving child ended with {child['clean']}")
+    log(f"serving: warmup of {stats['warmed']} of {stats['programs']} "
+        f"programs in {warm['warmup_s']:.3f} s wall ({stats['wall_s']} s "
+        f"in startup_warmup; library {stats['cached']} cached, "
+        f"{stats['compiled']} compiled, nvcc {stats['compile_s']:.3f} s; "
+        f"cache events {warm['cache_events']}, fallbacks "
+        f"{warm['fallbacks']}); first quorum check (200 slots, bucket 256) "
+        f"{warm['first_ms']:.3f} ms warmed, {cold['first_ms']:.3f} ms "
+        f"cold; the second {warm['second_ms']:.3f}, "
+        f"{cold['second_ms']:.3f} ms; median of {MEDIAN_CALLS} more "
+        f"{warm['median_ms'][0]:.3f} ms warmed, "
+        f"{cold['median_ms'][0]:.3f} ms cold; split: the library's load "
+        f"{split['load_ms']:.3f} ms, each kernel's first launch alone "
+        + ", ".join(f"{k} {v:.3f}" for k, v
+                    in split["first_launch_ms"].items())
+        + f" ms, then the first check {split['first_ms']:.3f} ms, the "
+        f"second {split['second_ms']:.3f}; processes "
+        f"{warm['process_s']:.3f}, {cold['process_s']:.3f}, "
+        f"{split['process_s']:.3f} s")
+
+    table, bits, h, sig, (sks, pks) = qc_inputs(seed)
+    single_sig = g2.mul(h, sks[0])
+    s, flushes = counted_scheduler()
+    now, feed = [0.0], [{"queue_depth": 0}]
+    gov = GV.install(GV.ResourceGovernor(
+        GV.Limits(queue_pressured=10, queue_critical=20, dwell_s=1.0),
+        sample_fn=lambda: feed[0], clock=lambda: now[0]))
+    srv = MT.MetricsServer(MT.Registry(), port=0).start()
+
+    def get(path):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}{path}",
+                                        timeout=30) as resp:
+                return resp.status, resp.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    def tier(depth, advance=0.0):
+        now[0] += advance
+        feed[0] = {"queue_depth": depth}
+        return GV.TIER_NAMES[gov.sample_once()]
+
+    def shed_on_card(submit, lane):
+        before = (launches(), D.COUNTERS["ref_fallback"],
+                  SHED.value(lane=lane, reason="governor"))
+        try:
+            submit().result(30)
+        except D.DeviceError as e:
+            check("governor" in str(e), f"a {lane} shed failed with {e}")
+        else:
+            raise AssertionError(f"a {lane} check bound for the card was "
+                                 f"not shed at {GV.TIER_NAMES[gov.state()]}")
+        check(since(before[0]) == {k: 0 for k in before[0]}
+              and D.COUNTERS["ref_fallback"] == before[1]
+              and SHED.value(lane=lane, reason="governor") == before[2] + 1,
+              f"the {lane} shed launched {since(before[0])} or reached the "
+              f"host")
+
+    readyz = []
+    try:
+        readyz.append((tier(15), get("/readyz")[0]))
+        shed_on_card(lambda: s.submit_single(pks[0], h, single_sig),
+                     "ingress")
+        readyz.append((tier(25), get("/readyz")[0]))
+        shed_on_card(lambda: s.submit_agg(table, bits, h, sig,
+                                          lane=Lane.SYNC), "sync")
+        flushes.clear()
+        check(s.submit_agg(table, bits, h, sig,
+                           lane=Lane.CONSENSUS).result(30) is True,
+              "a CONSENSUS quorum check at CRITICAL rejected a valid "
+              "certificate")
+        check(len(flushes) == 1, f"{len(flushes)} flushes for one check")
+        check_flushes(flushes, "the serving phase's CONSENSUS check")
+        with tempfile.TemporaryDirectory() as tmp:
+            with prof.capture(tmp) as cap:
+                check(D.agg_verify_hashed_on_device(table, bits, h, sig)
+                      is True, "the captured quorum check rejected a valid "
+                      "certificate")
+            with open(cap.path) as f:
+                events = json.load(f)["traceEvents"]
+        kernels = sorted({k for e in events if e.get("cat") == "kernel"
+                          for k in PATH_KERNELS if symbol(k) in e["name"]})
+        tier(0, 1.0)
+        readyz.append((tier(0, 1.0), get("/readyz")[0]))
+        status, text = get("/metrics")
+        check(status == 200 and all(f in text for f in SERVING_FAMILIES),
+              f"/metrics ({status}) lacks "
+              f"{[f for f in SERVING_FAMILIES if f not in text]}")
+        check(get("/healthz")[0] == 200, "/healthz is not 200")
+    finally:
+        srv.stop()
+        GV.uninstall()
+        sched.reset()
+    check(readyz == [("pressured", 200), ("critical", 503),
+                     ("normal", 200)], f"/readyz by tier: {readyz}")
+    node_clean("the serving phase", sheds=2)
+    seconds = time.perf_counter() - started
+    log(f"serving: /readyz {readyz}; the INGRESS and SYNC checks bound for "
+        f"the card shed with DeviceError, no launch; the CONSENSUS flush "
+        f"launched {flushes[0][2]}; /metrics carries "
+        f"{', '.join(SERVING_FAMILIES)}; prof.capture wrote "
+        f"{len(events)} trace events, kernels seen: "
+        f"{', '.join(kernels) if kernels else 'none (not measured)'}; "
+        f"{seconds:.3f} s")
+    return {"warm": warm, "cold": cold, "split": split, "readyz": readyz,
+            "captured_kernels": kernels, "seconds": seconds}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1673)
+    ap.add_argument("--serving-child", choices=("warm", "split", "cold"),
+                    help="run one fresh process of the serving phase")
     args = ap.parse_args(argv)
 
     import torch
@@ -3146,6 +3428,8 @@ def main(argv=None):
         print(f"chip_smoke: run from a checkout of the repo ({e})",
               file=sys.stderr)
         return 2
+    if args.serving_child:
+        return serving_child(args.serving_child, args.seed)
 
     started = time.perf_counter()
     log(card_line())
@@ -3220,6 +3504,9 @@ def main(argv=None):
     timings.update(sign_timing_phase(args.seed, plain_ms))
     signing = signing_phase(args.seed)
     mesh_phase(signing)
+    # the serving surface: warmup in a fresh process, the governor, the
+    # metrics server, prof.capture
+    serving_phase(args.seed)
 
     def entry(name, source, replaces, op, shape, described, kept,
               counted=path):

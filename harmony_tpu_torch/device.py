@@ -97,10 +97,23 @@ def mark_warm(program: str) -> None:
         _SEEN_PROGRAMS.add(program)
 
 
-def _record(program: str, first: bool, seconds: float) -> None:
+def _peak_base(first: bool, dev) -> int | None:
+    """At an armed profiler's first dispatch of a program on the card:
+    reset the allocator's peak and return the bytes allocated now (the
+    base of ``prof``'s ``peak_memory_bytes``); else None."""
+    if not (first and prof.enabled() and _on_card(dev)):
+        return None
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def _record(program: str, first: bool, seconds: float, args: tuple = (),
+            out: tuple = (), base: int | None = None, dev=None) -> None:
     if first:
         JIT_COMPILE_SECONDS.set(seconds, program=program)
-        prof.on_first_dispatch(program, seconds)
+        peak = (None if base is None
+                else torch.cuda.max_memory_allocated(dev) - base)
+        prof.on_first_dispatch(program, seconds, args, out, peak)
     else:
         prof.observe_execute(program, seconds)
 
@@ -413,12 +426,14 @@ def agg_verify_hashed_on_device(table: CommitteeTable, bits, h_point,
         TRANSFER.inc("h2d", h2d)
         program = f"agg_verify_b{table.size}"
         first = _program_first_use(program)
+        base = _peak_base(first, dev)
         t0 = time.monotonic()
-        ok = _kernels(dev).agg_verify(
-            table.device_array(), torch.from_numpy(bm).to(dev),
-            hh.to(dev), sg.to(dev))
+        args = (table.device_array(), torch.from_numpy(bm).to(dev),
+                hh.to(dev), sg.to(dev))
+        ok = _kernels(dev).agg_verify(*args)
         res = _host_array(ok)
-        _record(program, first, time.monotonic() - t0)
+        _record(program, first, time.monotonic() - t0, args, (ok,), base,
+                dev)
         TRANSFER.inc("d2h", res.nbytes)
         trace.annotate(program=program, bucket=table.size,
                        jit_cache="miss" if first else "hit",
@@ -467,10 +482,13 @@ def masked_pubkey_sum(points, bits, fallback, cache=None, device=None):
         TRANSFER.inc("h2d", h2d)
         program = f"masked_sum_w{width}"
         first = _program_first_use(program)
+        base = _peak_base(first, dev)
         t0 = time.monotonic()
-        res = _host_array(
-            CV.masked_sum_to_affine(pks, torch.from_numpy(bm).to(dev)))
-        _record(program, first, time.monotonic() - t0)
+        args = (pks, torch.from_numpy(bm).to(dev))
+        xy = CV.masked_sum_to_affine(*args)
+        res = _host_array(xy)
+        _record(program, first, time.monotonic() - t0, args, (xy,), base,
+                dev)
         TRANSFER.inc("d2h", res.nbytes)
         trace.annotate(program=program, width=width,
                        jit_cache="miss" if first else "hit",
@@ -502,7 +520,8 @@ def agg_verify_batch_on_device(table: CommitteeTable, bits_list,
         # dispatch EVERY chunk before syncing ANY result: a per-chunk copy
         # to the host inside this loop would wait on the device between
         # chunks
-        pending = []  # (ok, live lane count, program, issue time)
+        pending = []  # (ok, live lane count, program, issue time, args,
+        #               peak base)
         h2d = 0
         firsts = []
         for start in range(0, len(bits_list), widest):
@@ -517,19 +536,23 @@ def agg_verify_batch_on_device(table: CommitteeTable, bits_list,
             h2d += bm.nbytes + 4 * (hh.numel() + sg.numel())
             program = f"agg_verify_batch_b{table.size}x{padded}"
             first = _program_first_use(program)
+            base = _peak_base(first, dev)
             t0 = time.monotonic()
-            ok = fn(tbl, torch.from_numpy(bm).to(dev), hh.to(dev),
+            args = (tbl, torch.from_numpy(bm).to(dev), hh.to(dev),
                     sg.to(dev))
+            ok = fn(*args)
             COUNTERS.inc("batch_verify")
-            pending.append((ok, n, program, t0))
+            pending.append((ok, n, program, t0, args, base))
             firsts.append(first)
         TRANSFER.inc("h2d", h2d)
         results, d2h = [], 0
-        for (ok, n, program, t_issue), first in zip(pending, firsts):
+        for (ok, n, program, t_issue, args, base), first in zip(pending,
+                                                                firsts):
             flat = _host_array(ok)
             # issue->drain latency per chunk (queueing behind siblings
             # included)
-            _record(program, first, time.monotonic() - t_issue)
+            _record(program, first, time.monotonic() - t_issue, args,
+                    (ok,), base, dev)
             d2h += flat.nbytes
             results.extend(bool(x) for x in flat[:n])
         TRANSFER.inc("d2h", d2h)
@@ -571,10 +594,13 @@ def verify_on_device(pk_point, payload: bytes, sig_point,
         TRANSFER.inc("h2d", h2d)
         program = f"verify_w{width}"
         first = _program_first_use(program)
+        base = _peak_base(first, dev)
         t0 = time.monotonic()
-        res = _host_array(_kernels(dev).verify(pk.to(dev), hh.to(dev),
-                                            sg.to(dev)))
-        _record(program, first, time.monotonic() - t0)
+        args = (pk.to(dev), hh.to(dev), sg.to(dev))
+        ok = _kernels(dev).verify(*args)
+        res = _host_array(ok)
+        _record(program, first, time.monotonic() - t0, args, (ok,), base,
+                dev)
         TRANSFER.inc("d2h", res.nbytes)
         trace.annotate(program=program, width=width,
                        jit_cache="miss" if first else "hit",
@@ -606,7 +632,8 @@ def verify_many_on_device(pk_points, h_points, sig_points,
         widest = batch_buckets(dev)[-1]
         pad_to_bucket = _on_card(dev) or kernel_twin_active(dev)
         fn = _kernels(dev).verify
-        pending = []  # (ok, live lane count, program, issue time)
+        pending = []  # (ok, live lane count, program, issue time, args,
+        #               peak base)
         h2d = 0
         firsts = []
         for start in range(0, n_total, widest):
@@ -621,15 +648,18 @@ def verify_many_on_device(pk_points, h_points, sig_points,
             h2d += 4 * (pk.numel() + hh.numel() + sg.numel())
             program = f"verify_w{padded}"
             first = _program_first_use(program)
+            base = _peak_base(first, dev)
             t0 = time.monotonic()
-            pending.append((fn(pk.to(dev), hh.to(dev), sg.to(dev)), n,
-                            program, t0))
+            args = (pk.to(dev), hh.to(dev), sg.to(dev))
+            pending.append((fn(*args), n, program, t0, args, base))
             firsts.append(first)
         TRANSFER.inc("h2d", h2d)
         results, d2h = [], 0
-        for (ok, n, program, t_issue), first in zip(pending, firsts):
+        for (ok, n, program, t_issue, args, base), first in zip(pending,
+                                                                firsts):
             flat = _host_array(ok)
-            _record(program, first, time.monotonic() - t_issue)
+            _record(program, first, time.monotonic() - t_issue, args,
+                    (ok,), base, dev)
             d2h += flat.nbytes
             results.extend(bool(x) for x in flat[:n])
         TRANSFER.inc("d2h", d2h)
@@ -652,6 +682,38 @@ def _pad_lanes(x: torch.Tensor, pad: int) -> torch.Tensor:
     if not pad:
         return x
     return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+
+
+# -- warmup: each family's device program at a pinned shape ------------------
+
+# The device program behind each family of ``aot``'s manifest: the
+# counterparts of the JAX package's ``_get_*_fn``.
+PROGRAMS = {"agg_verify": OB.agg_verify,
+            "agg_verify_batch": OB.agg_verify_batch,
+            "verify": OB.verify,
+            "masked_sum": CV.masked_sum_to_affine}
+
+
+def warm(family: str, shapes: tuple, device=None) -> None:
+    """Run ``family``'s device program once on pad inputs of ``shapes``
+    (a manifest program's, ``aot.program_spec``): all-zero int32 limbs,
+    which are what the entry points pad with (affine infinity, (0, 0),
+    for keys and points; zero bitmap words).  As an entry point does, the
+    inputs are made on the host and copied to the device, and the result
+    is copied back, which waits for the card.  Under ``BREAKER``: a
+    failure, or an OPEN breaker, raises ``DeviceError`` and nothing runs
+    on the host in its place.  No entry point's counter moves."""
+    dev = resolve_device(device)
+    if not BREAKER.allow():
+        raise DeviceError(f"device breaker open: {family} not warmed")
+    try:
+        _host_array(PROGRAMS[family](
+            *(torch.zeros(shape, dtype=torch.int32).to(dev)
+              for shape in shapes)))
+    except Exception as e:  # noqa: BLE001 — any backend failure
+        BREAKER.record_failure()
+        raise DeviceError(f"warming {family} at {shapes} failed: {e}") from e
+    BREAKER.record_success()
 
 
 def expose_metrics() -> str:

@@ -28,10 +28,11 @@ but stuck) Python thread cannot be killed, so spawning a replacement
 would double-run its loop; the restart-safety matrix lives in
 docs/ANALYSIS.md ("Overload & degradation model").
 
-``verdicts()`` is the JSON body of a ``/healthz`` endpoint;  ``expose()``
-is the ``harmony_health_*`` Prometheus family.  The port's copy of the
-JAX package's ``health.py``, without ``readiness()``, which reads the
-resource governor that the port does not have yet.
+``verdicts()`` / ``readiness()`` are the JSON bodies behind the
+MetricsServer's ``/healthz`` and ``/readyz`` endpoints;  ``expose()``
+is the ``harmony_health_*`` Prometheus family hooked into
+``metrics.Registry``.  The port's copy of the JAX package's
+``health.py``.
 
 Everything is process-global (like sched/trace/faultinject):
 ``reset()`` in test teardown.
@@ -339,6 +340,24 @@ def verdicts() -> dict:
 
 def healthy() -> bool:
     return verdicts()["ok"]
+
+
+def readiness() -> dict:
+    """Readiness = liveness AND the resource governor is not in its
+    CRITICAL shed tier.  A node that is alive but actively shedding
+    should be drained by its load balancer, not handed more traffic."""
+    from . import governor as GV
+
+    v = verdicts()
+    gov = GV.current()
+    tier = gov.state() if gov is not None else None
+    ready = v["ok"] and (tier is None or tier < GV.Tier.CRITICAL)
+    return {
+        "ready": ready,
+        "health_ok": v["ok"],
+        "degraded": v["degraded"],
+        "governor": GV.TIER_NAMES[tier] if tier is not None else None,
+    }
 
 
 def expose() -> str:

@@ -1,6 +1,6 @@
 """Kernel-stage profiler: where does a verification's time actually go?
 
-The port's copy of the JAX package's ``prof.py``, with two surfaces:
+The port's copy of the JAX package's ``prof.py``, with three surfaces:
 
 1. **Stage spans** — ``with prof.stage("hash_to_g2"):`` at the
    host-visible stage boundaries of the pairing pipeline.  Each stage
@@ -13,15 +13,23 @@ The port's copy of the JAX package's ``prof.py``, with two surfaces:
 2. **Program registry** — ``device.py`` reports every program shape's
    FIRST dispatch here (under torch: the first launch at a program's
    shape, which pays the kernel library's load and the first copies).
-   The registry stores that dispatch's wall time; every later dispatch
-   feeds a per-program execute-seconds histogram.  All of it exposes as
-   the ``harmony_prof_*`` families.
+   The registry stores that dispatch's wall time always; when the
+   profiler is armed it adds the port's counterpart of the JAX package's
+   XLA cost analysis under the same keys (``_cost_analysis``): the
+   program's integer operations (``flops``), its argument and output
+   bytes, and the allocator's peak over that dispatch.  Every later
+   dispatch feeds a per-program execute-seconds histogram.  All of it
+   exposes as the ``harmony_prof_*`` families.
 
-The JAX package's capture hook (``capture``, over ``jax.profiler``) and
-its XLA cost analysis of each program have no counterpart here yet: the
-first dispatch's record carries its wall time only.
+3. **Capture hook** — ``with prof.capture():`` records a
+   ``torch.profiler`` trace of the block (CPU and, on the card, CUDA
+   activity) and writes it as Chrome trace JSON into
+   ``HARMONY_TPU_PROFILE_DIR`` or the directory passed, loadable in
+   Perfetto.  Nested captures share the outer trace: ``torch.profiler``
+   runs one profiler at a time.
 
-Stdlib + metrics/trace only.
+Stdlib + metrics/trace at import; torch is touched lazily and only
+behind the capture hook.
 """
 
 from __future__ import annotations
@@ -53,7 +61,12 @@ _lock = threading.Lock()  # guards the dicts below; never held across
 _stage_hist: dict[str, Histogram] = {}
 _exec_hist: dict[str, Histogram] = {}
 _compile_hist: dict[str, Histogram] = {}
-_programs: dict[str, dict] = {}  # program -> {compile_s}
+_programs: dict[str, dict] = {}  # program -> {compile_s, flops, ...}
+
+_capture_lock = threading.Lock()
+_capture_depth = 0  # nested capture() blocks share one profiler
+_capture_profiler = None  # the torch.profiler recording, if one is
+_capture_path: str | None = None  # where that recording is written
 
 
 def configure(enabled: bool | None = None) -> None:
@@ -177,10 +190,15 @@ def observe_execute(program: str, seconds: float) -> None:
         h.observe(seconds)
 
 
-def on_first_dispatch(program: str, seconds: float) -> None:
+def on_first_dispatch(program: str, seconds: float, args: tuple = (),
+                      out: tuple = (), peak_bytes: int | None = None
+                      ) -> None:
     """device.py's hook at the one dispatch per program shape that
-    paid the first use: records its wall time.  Never raises into the
-    dispatch path."""
+    paid the first use: records its wall time, and — when the profiler
+    is armed — the program's cost (``_cost_analysis``) from its argument
+    and output tensors and the allocator's peak over the dispatch
+    (``peak_bytes``, None off the card).  Never raises into the dispatch
+    path."""
     h = _labeled(
         _compile_hist, program, "harmony_prof_compile_seconds",
         "wall time of the first dispatch per program shape",
@@ -188,20 +206,178 @@ def on_first_dispatch(program: str, seconds: float) -> None:
     )
     if h is not None:
         h.observe(seconds)
+    entry = {"compile_s": seconds}
+    if _enabled:
+        entry.update(_cost_analysis(program, args, out, peak_bytes))
     with _lock:
         if len(_programs) < _MAX_LABELS or program in _programs:
-            _programs.setdefault(program, {}).update(compile_s=seconds)
+            _programs.setdefault(program, {}).update(entry)
+
+
+# Montgomery products per lane that the kernels' plans fix, counted as
+# PERF.md §6 counts a bound, and the int32 IMAD of one product
+MONT_IMAD = 2 * 288
+MILLER_PRODUCTS = 63 * (36 + 54 + 34) + 5 * (54 + 44)  # one pair
+FP12_MUL_PRODUCTS = 54  # the product of a check's two Miller values
+FINAL_EXP_PRODUCTS = 315 * 18 + 34 * 54 + 36 + 112 + 3 * 18
+# one single check: two pairs' Miller loops, their product, the final
+# exponentiation
+CHECK_PRODUCTS = 2 * MILLER_PRODUCTS + FP12_MUL_PRODUCTS + FINAL_EXP_PRODUCTS
+
+
+def masked_sum_products(n: int) -> int:
+    """Products of one lane of the masked G1 sum over a table of ``n``
+    (a power of two) affine keys, every key selected: n/2 adds of two
+    points with Z = 1 (6 products), n/2 - 1 adds of two Jacobian points
+    (16), and 4 for the affine form."""
+    return 6 * (n // 2) + 16 * (n // 2 - 1) + 4
+
+
+def program_operations(program: str) -> int | None:
+    """int32 operations of one run of a manifest program with every lane
+    live: its Montgomery products at ``MONT_IMAD`` each.  The inversions'
+    GCD steps, whose count depends on the data, are left out.  None for
+    a name that is not a manifest program."""
+    from . import aot
+
+    spec = aot.program_spec(program)
+    if spec is None:
+        return None
+    family, dims, _ = spec
+    if family == "agg_verify":
+        products = masked_sum_products(dims[0]) + CHECK_PRODUCTS
+    elif family == "agg_verify_batch":
+        products = dims[1] * (masked_sum_products(dims[0]) + CHECK_PRODUCTS)
+    elif family == "verify":
+        products = dims[0] * CHECK_PRODUCTS
+    else:  # masked_sum
+        products = masked_sum_products(dims[0])
+    return products * MONT_IMAD
+
+
+def _nbytes(xs) -> int:
+    return sum(int(x.nbytes) for x in xs if hasattr(x, "nbytes"))
+
+
+def _cost_analysis(program: str, args: tuple, out: tuple,
+                   peak_bytes: int | None) -> dict:
+    """The port's view of one program: its integer operations
+    (``flops``, under the JAX package's key), the bytes of its argument
+    and output tensors and their sum (``bytes_accessed``: each read or
+    written once), and ``peak_memory_bytes``, the allocator's peak over
+    the dispatch above what was allocated when it began."""
+    out_ = {}
+    try:
+        ops = program_operations(program)
+        if ops is not None:
+            out_["flops"] = float(ops)
+        arg_b, out_b = _nbytes(args), _nbytes(out)
+        out_["argument_bytes"] = float(arg_b)
+        out_["output_bytes"] = float(out_b)
+        out_["bytes_accessed"] = float(arg_b + out_b)
+        if peak_bytes is not None:
+            out_["peak_memory_bytes"] = float(peak_bytes)
+    except Exception:  # noqa: BLE001 — profiling must not break dispatch
+        pass
+    return out_
 
 
 def programs() -> dict:
-    """Snapshot of the program registry: {program: {compile_s}}."""
+    """Snapshot of the program registry: {program: {compile_s, flops,
+    bytes_accessed, peak_memory_bytes, ...}}."""
     with _lock:
         return {k: dict(v) for k, v in _programs.items()}
+
+
+# -- capture hook ------------------------------------------------------------
+
+
+def capture_dir() -> str | None:
+    return os.environ.get("HARMONY_TPU_PROFILE_DIR") or None
+
+
+class _Capture:
+    __slots__ = ("dir", "path", "_counted")
+
+    def __init__(self, directory: str | None):
+        self.dir = directory
+        self.path = None  # the trace file this block records into
+        self._counted = False  # this handle is in _capture_depth
+
+    def __enter__(self):
+        global _capture_depth, _capture_profiler, _capture_path
+        if self.dir is None:
+            return self
+        # the profiler starts UNDER the lock: the whole enter is atomic,
+        # so a failed start can never strand the depth counter while a
+        # sibling thread slips in between count and start
+        with _capture_lock:
+            if _capture_depth == 0:
+                try:
+                    import torch
+                    from torch.profiler import ProfilerActivity, profile
+
+                    activities = [ProfilerActivity.CPU]
+                    if torch.cuda.is_available():
+                        activities.append(ProfilerActivity.CUDA)
+                    os.makedirs(self.dir, exist_ok=True)
+                    recording = profile(activities=activities)
+                    recording.start()
+                except Exception:  # noqa: BLE001 — capture is
+                    # best-effort; the measurement it wraps must
+                    # proceed uninstrumented (and uncounted)
+                    return self
+                _capture_profiler = recording
+                _capture_path = os.path.join(
+                    self.dir, f"harmony_tpu_torch.{os.getpid()}."
+                    f"{time.time_ns()}.pt.trace.json")
+            _capture_depth += 1
+            self._counted = True
+            self.path = _capture_path
+        return self
+
+    def __exit__(self, *exc):
+        global _capture_depth, _capture_profiler, _capture_path
+        if not self._counted:
+            return False
+        # the trace stops when the LAST counted handle leaves — never
+        # while a sibling capture is still inside (ownership follows
+        # the depth counter, not whichever handle happened to start)
+        recording = None
+        with _capture_lock:
+            _capture_depth -= 1
+            if _capture_depth == 0 and _capture_profiler is not None:
+                recording, path = _capture_profiler, _capture_path
+                _capture_profiler = _capture_path = None
+        if recording is not None:
+            try:
+                recording.stop()
+                recording.export_chrome_trace(path)
+            except Exception:  # noqa: BLE001 — same best-effort contract
+                pass
+        return False
+
+
+def capture(directory: str | None = None):
+    """``with prof.capture() as c:`` — a torch.profiler trace of the
+    wrapped block lands in ``HARMONY_TPU_PROFILE_DIR`` (or
+    ``directory``) as Chrome trace JSON at ``c.path``, loadable in
+    Perfetto.  Without a directory configured the block runs
+    uninstrumented (``c.path`` None); nested captures share the outer
+    trace."""
+    return _Capture(directory or capture_dir())
 
 
 # -- exposition --------------------------------------------------------------
 
 _PROGRAM_GAUGES = (
+    ("flops", "harmony_prof_program_flops",
+     "int32 operations per program (Montgomery products x 576 IMAD)"),
+    ("bytes_accessed", "harmony_prof_program_bytes_accessed",
+     "argument and output bytes per program"),
+    ("peak_memory_bytes", "harmony_prof_program_peak_memory_bytes",
+     "allocator peak over the first dispatch above its start, per "
+     "program"),
     ("compile_s", "harmony_prof_program_compile_seconds",
      "wall time of the first dispatch per program"),
 )
@@ -232,5 +408,6 @@ def expose() -> str:
 
 
 # HARMONY_TPU_PROF=1 arms the profiler for the whole process the
-# moment any layer imports this module (device.py does at startup).
+# moment any layer imports this module (device.py does at startup) —
+# the documented operator path needs no code hook.
 arm_from_env()

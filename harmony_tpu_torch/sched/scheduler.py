@@ -51,11 +51,13 @@ context, and the ``harmony_sched_*`` metric families rendered by
 ``expose_metrics`` (queue depth, per-lane wait, batch fill ratio, sheds,
 flushes).
 
-The port's copy of the JAX package's scheduler.  Three differences: the
+The port's copy of the JAX package's scheduler.  Two differences: the
 scheduler dispatches to the device given at construction (``device``;
-None: the node's device of ``device.use_device``, else CUDA), a shed
-check bound for CUDA fails rather than running on the host, and it has
-no resource-governor shedding yet (the governor is not ported).
+None: the node's device of ``device.use_device``, else CUDA), and a shed
+check bound for CUDA fails with ``device.DeviceError`` rather than
+running on the host.  That holds for every shed, the resource
+governor's included (``governor.should_shed``: INGRESS from PRESSURED,
+SYNC at CRITICAL, CONSENSUS never).
 """
 
 from __future__ import annotations
@@ -381,6 +383,17 @@ class VerifyScheduler:
             if req.kind != "backend" and self._breaker_open():
                 self._shed(req, "breaker_open")
                 return req.future
+            # resource-governor degradation: INGRESS sheds from the
+            # PRESSURED tier, SYNC from CRITICAL, CONSENSUS never —
+            # overload must not buy queue depth ahead of quorum proofs.
+            # Off the card the shed verdict is the exact CPU-reference
+            # answer on the caller's thread; bound for CUDA it fails
+            if req.lane is not Lane.CONSENSUS:
+                from .. import governor as GV
+
+                if GV.should_shed(req.lane):
+                    self._shed(req, "governor")
+                    return req.future
             # fail-fast admission: if the budget cannot survive the
             # queue already ahead of us, refuse before anyone waits
             if req.deadline is not None:

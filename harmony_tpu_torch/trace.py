@@ -31,14 +31,16 @@ Design constraints, in order:
    sidecar desync, round-SLO overrun — dumps ONE correlated snapshot
    (spans + log records sharing the trace id) to disk and the log.
 
+Consumers: ``GET /debug/trace`` on the metrics server serves
+``export_chrome()`` — Chrome trace-event JSON, loadable in Perfetto.
+
 Stdlib-only; importing this module must stay safe from every layer
 (log.py imports it at module level).
 
-The port's copy of the JAX package's ``trace.py``, stdlib only, without
-what only the JAX package's node, CLI and metrics server call: node
+The port's copy of the JAX package's ``trace.py``, whole: node
 attribution (``set_node``, ``bind_node``, ``node_scope``,
 ``current_node``), the round SLO (``round_slo_s``), the span export hook
-and ``export_chrome``.  They come back with those callers.
+and ``export_chrome`` included.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from contextvars import ContextVar
 
 _enabled = False  # THE one-comparison fast path
 _sample_rate = 1.0
+_round_slo_s: float | None = None
 _dump_dir: str | None = None
 
 _STORE_CAP = 4096  # finished spans kept for /debug/trace
@@ -80,9 +83,23 @@ _FLAG_SAMPLED = 0x01
 _current: ContextVar["Span | None"] = ContextVar("harmony_tpu_trace",
                                                  default=None)
 
+# -- node attribution: every span carries node= so traces merged across
+# the in-process localnet (one shared store) or across real processes
+# (JSONL sink files) remain attributable per node.  Resolution order:
+# thread/context binding (pump threads of an in-process localnet), then
+# the process-wide default (one real node per process, set by cli.py).
+_node_default: str | None = None
+_node_ctx: ContextVar["str | None"] = ContextVar("harmony_tpu_trace_node",
+                                                 default=None)
+
+# Export hook (obs.SpanSink): called with each finished Span.  A plain
+# module global read on the finish path — None when no sink is armed.
+_export_hook = None
+
 _finished: deque = deque(maxlen=_STORE_CAP)
 _events: deque = deque(maxlen=_EVENT_CAP)
 _active: dict[str, "Span"] = {}  # span_id -> open span (dump visibility)
+_thread_names: dict[int, str] = {}
 
 _dump_lock = threading.Lock()  # anomaly path only, never span lifecycle
 _dumps: list = []  # dump file paths, bounded to _DUMP_CAP
@@ -100,21 +117,25 @@ _dump_bytes = 0  # payload bytes written since reset()
 
 
 def configure(enabled: bool | None = None, sample_rate: float | None = None,
+              round_slo_s: float | None = ...,
               dump_dir: str | None = None,
               dump_cooldown_s: float | None = None,
               dump_max_bytes: int | None = None) -> None:
     """Arm/tune the tracer.  ``sample_rate`` applies at ROOT span
     creation (deterministic by trace-id hash — no ``random``);
-    ``dump_dir`` is where the flight
+    ``round_slo_s`` arms the round-latency anomaly (``...`` = leave
+    unchanged, ``None`` = disarm); ``dump_dir`` is where the flight
     recorder writes (default: $HARMONY_TPU_TRACE_DIR or
     <tmp>/harmony_tpu_flight); ``dump_cooldown_s`` rate-limits dumps
     per anomaly kind (0 disables the limit); ``dump_max_bytes`` caps
     the lifetime bytes the flight recorder may write per process
     (default 64 MiB; 0 disables the budget)."""
-    global _enabled, _sample_rate, _dump_dir
+    global _enabled, _sample_rate, _round_slo_s, _dump_dir
     global _dump_cooldown_s, _dump_budget_bytes
     if sample_rate is not None:
         _sample_rate = max(0.0, min(1.0, float(sample_rate)))
+    if round_slo_s is not ...:
+        _round_slo_s = round_slo_s
     if dump_dir is not None:
         _dump_dir = dump_dir
     if dump_cooldown_s is not None:
@@ -129,18 +150,83 @@ def enabled() -> bool:
     return _enabled
 
 
+def round_slo_s() -> float | None:
+    return _round_slo_s
+
+
+def set_node(name: str | None) -> None:
+    """Process-wide node identity stamped onto every span (``node=``
+    attr).  One real node per process: cli.py sets this once at boot."""
+    global _node_default
+    _node_default = name
+
+
+def bind_node(name: str | None) -> None:
+    """Bind a node identity to the CURRENT thread/context — the
+    in-process localnet runs several nodes in one process, so each
+    consensus pump binds its own name at thread start.  Overrides the
+    process default for spans created under this context."""
+    _node_ctx.set(name)
+
+
+class _NodeScope:
+    """Context manager scoping a node binding (pump-driven tests run
+    many nodes on ONE thread, so the binding must nest and restore)."""
+
+    __slots__ = ("_name", "_token")
+
+    def __init__(self, name: str):
+        self._name = name
+        self._token = None
+
+    def __enter__(self):
+        self._token = _node_ctx.set(self._name)
+        return self
+
+    def __exit__(self, *exc):
+        _node_ctx.reset(self._token)
+        return False
+
+
+def node_scope(name: str):
+    """``with trace.node_scope("shard0-a"):`` — spans created inside
+    carry ``node=name``.  Disabled cost: one comparison."""
+    if not _enabled:
+        return _NOOP
+    return _NodeScope(name)
+
+
+def current_node() -> str | None:
+    """The node identity spans would be stamped with right now."""
+    node = _node_ctx.get()
+    return node if node is not None else _node_default
+
+
+def set_export_hook(hook) -> None:
+    """Install (or clear, with None) the finished-span export hook.
+    Called synchronously from ``finish`` — implementations must be
+    O(queue append) and never raise (obs.SpanSink qualifies)."""
+    global _export_hook
+    _export_hook = hook
+
+
 def reset() -> None:
     """Disarm and drop every buffer (test teardown).  Dump FILES are
     left on disk — they are the evidence a failed test points at."""
-    global _enabled, _sample_rate, _dump_dir
+    global _enabled, _sample_rate, _round_slo_s, _dump_dir
     global _dump_cooldown_s, _dump_total, _dump_budget_bytes, _dump_bytes
+    global _node_default, _export_hook
     _enabled = False
+    _node_default = None
+    _export_hook = None
     _sample_rate = 1.0
+    _round_slo_s = None
     _dump_dir = None
     _dump_cooldown_s = 30.0
     _finished.clear()
     _events.clear()
     _active.clear()
+    _thread_names.clear()
     with _dump_lock:
         _dumps.clear()
         _dump_last.clear()
@@ -177,8 +263,16 @@ class Span:
         self.t0 = time.monotonic()
         self.dur_s: float | None = None
         self.attrs = attrs
-        self.tid = threading.get_ident()
+        if "node" not in attrs:
+            node = _node_ctx.get()
+            if node is None:
+                node = _node_default
+            if node is not None:
+                attrs["node"] = node
+        t = threading.current_thread()
+        self.tid = t.ident or 0
         self.pid = _PID
+        _thread_names.setdefault(self.tid, t.name)
         _active[self.span_id] = self
 
     def annotate(self, **attrs) -> None:
@@ -299,6 +393,12 @@ def finish(span) -> float | None:
     span.dur_s = time.monotonic() - span.t0
     _active.pop(span.span_id, None)
     _finished.append(span)
+    hook = _export_hook
+    if hook is not None:
+        try:
+            hook(span)
+        except Exception:  # noqa: BLE001 — a broken sink must never
+            pass  # break the span lifecycle of the path that traced
     return span.dur_s
 
 
@@ -407,6 +507,41 @@ def spans(trace_id: str | None = None) -> list:
     if trace_id is not None:
         out = [s for s in out if s.trace_id == trace_id]
     return out
+
+
+def export_chrome(trace_id: str | None = None) -> dict:
+    """Chrome trace-event JSON (Perfetto-loadable): complete events
+    (ph="X", µs clocks) plus thread-name metadata."""
+    events = []
+    seen_threads = set()
+    for s in spans(trace_id):
+        ts_us = (s.t0 + _WALL0) * 1e6
+        dur_us = (s.dur_s if s.dur_s is not None
+                  else time.monotonic() - s.t0) * 1e6
+        args = {"trace_id": s.trace_id, "span_id": s.span_id}
+        if s.parent_id:
+            args["parent_id"] = s.parent_id
+        if s.dur_s is None:
+            args["open"] = True
+        args.update({k: str(v) for k, v in s.attrs.items()})
+        events.append({
+            "name": s.name,
+            "cat": s.component or "span",
+            "ph": "X",
+            "ts": round(ts_us, 1),
+            "dur": round(dur_us, 1),
+            "pid": s.pid,
+            "tid": s.tid,
+            "args": args,
+        })
+        seen_threads.add((s.pid, s.tid))
+    for pid, tid in sorted(seen_threads):
+        events.append({
+            "name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+            "args": {"name": _thread_names.get(tid, f"thread-{tid}")},
+        })
+    events.sort(key=lambda e: (e["ph"] == "M", e.get("ts", 0.0)))
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
 
 
 # -- flight recorder ---------------------------------------------------------
