@@ -65,7 +65,20 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    scheduler flush must launch each kernel of its path exactly once, and
    the routes outside the scheduler their exact launches; node_clean
    after every part;
-7. holds the signing ops' kernels (scalar_mul_g1, scalar_mul_g2,
+7. drives the node itself (localnet_phase): 10 Nodes of 20 keys (200
+   slots, keys from --seed, each node one operator under the
+   LeaderRotation gate) on the port's chain, tx pool and in-process
+   gossip, each Blockchain wired to an Engine so every insert re-checks
+   its commit proof on the card: three rounds by a manual pump (an empty
+   block, a transfer, a create-validator whose proof of possession the
+   pool checks on INGRESS, a forged copy refused), one view change whose
+   NEWVIEW carries the PREPARED proof, one round through the Handel
+   overlay (merged partials, none forged), and run_forever threads
+   until 5 more blocks commit within 120 s; every node at the same head
+   and commit proofs, every flush at its exact launches, node_clean and
+   no dropped message after every part; it prints each part's seconds,
+   the rounds' wall seconds and each lane's median wait;
+8. holds the signing ops' kernels (scalar_mul_g1, scalar_mul_g2,
    g2_masked_sum) against their plain versions on the card, bit for bit,
    and times them (sign_kernels_phase, sign_timing_phase; the ladders'
    step also by phase, from a timed build of each, ladder_phases; the G2
@@ -78,9 +91,9 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    library's; the aggregate verified through agg_verify_hashed_on_device
    against a table of the derived keys, one forged lane rejected; each
    call held to its exact launches;
-8. drives parallel/mesh.py over a NCCL process group of world size 1
+9. drives parallel/mesh.py over a NCCL process group of world size 1
    (mesh_phase): each sharded_* equal to the unsharded call;
-9. drives the node's serving surface (serving_phase): a fresh process
+10. drives the node's serving surface (serving_phase): a fresh process
    runs aot.startup_warmup(), which must warm all 43 programs of the
    manifest on the card with no failure, and then its first quorum check
    at 200 slots, which must count a JIT hit and no miss; a second fresh
@@ -95,8 +108,9 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    loopback reads 200, 503, 200, /metrics carries the port's families,
    and prof.capture around one quorum check writes a Chrome trace that
    parses (the kernels it saw printed, or none: not measured);
-10. prints a JSON line describing each kernel, then, last,
-   {"ok": true, "device": {...}}.
+11. prints a JSON line describing each kernel (with its launches on
+   the main path, the consumers, the signing path and the localnet),
+   then, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line.  Without CUDA,
 or without the harmony_tpu_torch package next to it, it exits non-zero
@@ -2573,6 +2587,369 @@ def consumers_phase(seed):
             "parts": {k: v[0] for k, v in parts.items()}}
 
 
+# the port's Node itself: a localnet of NODES nodes of KEYS_PER_NODE keys
+# (200 slots, bucket 256) on the port's chain, tx pool and in-process
+# gossip; the live part runs Node.run_forever at the mainnet block period
+LOCALNET_CHAIN_ID = 2
+LOCALNET_EPOCH_BLOCKS = 32768  # Harmony mainnet's blocks per epoch
+LOCALNET_LIVE_BLOCKS = 5
+LOCALNET_LIVE_BUDGET_S = 120.0
+LOCALNET_BLOCK_TIME = 2.0  # the mainnet period (node.py run_forever)
+
+
+def localnet_phase(seed):
+    """The port's Node on the card: NODES nodes of KEYS_PER_NODE keys on
+    InProcessNetwork, each Blockchain wired to an Engine (a committee
+    provider over committee_for_epoch), so every insert re-checks its
+    commit proof on CONSENSUS.  Three rounds by a manual pump (an empty
+    block, a transfer, a create-validator whose proof of possession the
+    pool checks on INGRESS; a forged copy refused), one view change whose
+    NEWVIEW carries the PREPARED proof, one round through the Handel
+    overlay, and live rounds on run_forever threads.  Launch counts start
+    from zero; every flush is held to its exact launches; node_clean and
+    no dropped message after every part."""
+    import statistics
+
+    from harmony_tpu_torch import bls as B
+    from harmony_tpu_torch import device as D
+    from harmony_tpu_torch import multibls as MB
+    from harmony_tpu_torch import sched
+    from harmony_tpu_torch.chain import engine as ENG
+    from harmony_tpu_torch.config.chain import ChainConfig
+    from harmony_tpu_torch.consensus import view_change as VC
+    from harmony_tpu_torch.consensus.messages import MsgType, decode_message
+    from harmony_tpu_torch.core import rawdb
+    from harmony_tpu_torch.core.blockchain import Blockchain
+    from harmony_tpu_torch.core.genesis import Genesis
+    from harmony_tpu_torch.core.kv import MemKV
+    from harmony_tpu_torch.core.tx_pool import PoolError, TxPool
+    from harmony_tpu_torch.core.types import Directive, StakingTransaction, \
+        Transaction
+    from harmony_tpu_torch.crypto_ecdsa import ECDSAKey
+    from harmony_tpu_torch.node.ingress import MessageCategory, \
+        parse_envelope
+    from harmony_tpu_torch.node.node import Node
+    from harmony_tpu_torch.node.registry import Registry
+    from harmony_tpu_torch.p2p import InProcessNetwork
+    from harmony_tpu_torch.ref.params import R_ORDER
+    from harmony_tpu_torch.sched.scheduler import LANE_NAMES
+    from harmony_tpu_torch.ref import native as NB
+    from harmony_tpu_torch.shard.committee import Committee, Slot, State
+
+    check(D._FORCED is None and D.device_enabled(),
+          "device_enabled() is not True by AUTO on the card")
+    # the nodes sign and hash on the host: the native library, as a node
+    # runs it
+    check(NB.available(), "the native host library did not load")
+    node_clean("before the localnet phase")
+    started = time.perf_counter()
+    card = card_line()
+    chain_id = LOCALNET_CHAIN_ID
+    committee_size = NODES * KEYS_PER_NODE
+    rng = random.Random(seed + 15)
+    keys = [B.PrivateKey(rng.randrange(1, R_ORDER))
+            for _ in range(committee_size)]
+    sender = ECDSAKey.from_seed(b"localnet sender %d" % seed)
+    staker = ECDSAKey.from_seed(b"localnet staker %d" % seed)
+    genesis = Genesis(
+        config=ChainConfig(chain_id=chain_id, leader_rotation_epoch=0),
+        shard_id=0,
+        alloc={sender.address(): 10**24, staker.address(): 10**24},
+        committee=[k.pub.bytes for k in keys])
+    # each node one operator of KEYS_PER_NODE slots: with the
+    # LeaderRotation gate on (as on mainnet), views rotate over operators
+    operators = State(epoch=0, shards=[Committee(shard_id=0, slots=[
+        Slot(ecdsa_address=bytes([1 + i // KEYS_PER_NODE]) * 20,
+             bls_pubkey=k.pub.bytes) for i, k in enumerate(keys)])])
+    s, flushes = counted_scheduler()
+    # each request's enqueue-to-dispatch wait, by lane
+    lane_waits = {name: [] for name in LANE_NAMES.values()}
+    observe = s._observe_waits
+
+    def observed(batch):
+        now = s._clock()
+        for req in batch:
+            lane_waits[LANE_NAMES[req.lane]].append(now - req.enqueued_at)
+        observe(batch)
+    s._observe_waits = observed
+    reset_launches()
+    parts, nets = {}, []
+    to = b"\x0a" * 20
+
+    def localnet(aggregation=None):
+        net = InProcessNetwork()
+        nodes = []
+        for i in range(NODES):
+            cell = []
+            engine = ENG.Engine(lambda shard, epoch, cell=cell:
+                                ENG.EpochContext(
+                                    cell[0].committee_for_epoch(epoch)))
+            db = MemKV()
+            rawdb.write_shard_state(db, 0, operators)
+            chain = Blockchain(db, genesis, engine=engine,
+                               blocks_per_epoch=LOCALNET_EPOCH_BLOCKS)
+            cell.append(chain)
+            reg = Registry(blockchain=chain,
+                           txpool=TxPool(chain_id, 0, chain.state),
+                           host=net.host(f"node{i}"))
+            if aggregation is not None:
+                reg.set("aggregation", aggregation)
+            nodes.append(Node(reg, MB.PrivateKeys.from_keys(
+                keys[i * KEYS_PER_NODE:(i + 1) * KEYS_PER_NODE])))
+        check(all(n.chain.engine is not None and n.chain.engine.device
+                  is True for n in nodes),
+              "a node's chain has no engine on the device path")
+        nets.append(nodes)
+        return nodes, net
+
+    def pump(nodes, rounds=400):
+        for _ in range(rounds):
+            if not any(n.process_pending() for n in nodes):
+                return
+
+    def leader_of(nodes):
+        leaders = [n for n in nodes if n.is_leader]
+        check(len(leaders) == 1, f"{len(leaders)} leaders")
+        return leaders[0]
+
+    def agreed(nodes, height, what):
+        """Every node at ``height`` with the same head, commit proof and
+        balances."""
+        heads = {n.chain.head_number for n in nodes}
+        check(heads == {height}, f"{what}: heads {sorted(heads)}, not "
+              f"{height}")
+        for num in range(1, height + 1):
+            seen = {(n.chain.block_by_number(num).hash(),
+                     n.chain.read_commit_sig(num)) for n in nodes}
+            check(len(seen) == 1 and None not in next(iter(seen)),
+                  f"{what}: the nodes differ at height {num}")
+        balances = {(n.chain.state().balance(sender.address()),
+                     n.chain.state().balance(to)) for n in nodes}
+        check(len(balances) == 1, f"{what}: balances differ {balances}")
+
+    def part(name, fn):
+        """One part: its launches, time and flushes; node_clean and no
+        dropped message after it."""
+        before, t0, n0 = launches(), time.perf_counter(), len(flushes)
+        out = fn()
+        parts[name] = (since(before), time.perf_counter() - t0,
+                       len(flushes) - n0)
+        log(f"localnet, {name}: {parts[name][1]:.3f} s, {parts[name][2]} "
+            "flushes, launches " + ", ".join(
+                f"{n} {k}" for k, n in parts[name][0].items() if n))
+        check_flushes(flushes[n0:], f"localnet, {name}")
+        node_clean(f"localnet, {name}")
+        dropped = [n.dropped_messages for nodes in nets for n in nodes]
+        check(not any(dropped), f"localnet, {name}: dropped messages "
+              f"{dropped} (a device fault hidden as a stall)")
+        return out
+
+    nodes, net = localnet()
+    round_s = []
+
+    def commit_round(height, add=None):
+        leader = leader_of(nodes)
+        if add is not None:
+            add(leader)
+        t0 = time.perf_counter()
+        check(leader.start_round_if_leader() is not None,
+              f"round {height}: the leader proposed nothing")
+        pump(nodes)
+        round_s.append(time.perf_counter() - t0)
+        agreed(nodes, height, f"round {height}")
+
+    def manual():
+        commit_round(1)
+
+        def transfer(leader):
+            leader.pool.add(Transaction(
+                nonce=0, gas_price=1, gas_limit=25_000, shard_id=0,
+                to_shard=0, to=to, value=777).sign(sender, chain_id))
+        commit_round(2, transfer)
+        check(nodes[0].chain.state().balance(to) == 777,
+              "the transfer did not land")
+        new_key = B.PrivateKey(rng.randrange(1, R_ORDER))
+        forged = B.proof_of_possession(B.PrivateKey(rng.randrange(1,
+                                                                  R_ORDER)))
+
+        def create(nonce, proof):
+            return StakingTransaction(
+                nonce=nonce, gas_price=1, gas_limit=50_000,
+                directive=Directive.CREATE_VALIDATOR,
+                fields={"amount": 10**20, "min_self_delegation": 10**18,
+                        "bls_keys": new_key.pub.bytes,
+                        "bls_key_sigs": proof}).sign(staker, chain_id)
+
+        def stake(leader):
+            ingress = len(lane_waits["ingress"])
+            leader.pool.add(create(0, B.proof_of_possession(new_key)),
+                            is_staking=True)
+            try:
+                leader.pool.add(create(1, forged), is_staking=True)
+                refused = False
+            except PoolError as e:
+                refused = "proof of possession" in str(e)
+            check(refused, "a forged proof of possession was admitted")
+            check(len(lane_waits["ingress"]) - ingress == 2,
+                  "the proofs of possession were not checked on INGRESS")
+        commit_round(3, stake)
+        check(all(n.chain.state().validator(staker.address()) is not None
+                  for n in nodes), "the validator was not created")
+    part("manual rounds", manual)
+
+    # one view change: the leader is lost after PREPARED, the NEWVIEW
+    # carries the prepared block and its proof
+    vc_out = {}
+
+    def view_change():
+        leader = leader_of(nodes)
+        validators = [n for n in nodes if n is not leader]
+        wire = []
+        for n in validators:
+            publish = n.host.publish
+
+            def recorded(topic, payload, publish=publish):
+                wire.append(payload)
+                return publish(topic, payload)
+            n.host.publish = recorded
+        t0 = time.perf_counter()
+        proposed = leader.start_round_if_leader()
+        for v in validators:
+            v.process_pending()
+        leader.process_pending()
+        for v in validators:
+            v.process_pending()
+        net.partitioned.add(leader.host.name)
+        check(all(v._prepared_proof is not None for v in validators),
+              "a validator holds no PREPARED proof")
+        proof = validators[0]._prepared_proof
+        for v in validators:
+            v.start_view_change()
+        pump(validators)
+        new_leader = leader_of(validators)
+        check(new_leader is not leader and new_leader._reproposal is not None,
+              "the new leader carries no prepared block")
+        new_leader.start_round_if_leader()
+        pump(validators)
+        vc_out["s"] = time.perf_counter() - t0
+        agreed(validators, 4, "the view change")
+        committed = validators[0].chain.block_by_number(4)
+        check(committed.hash() == proposed.hash(), "the re-proposed block "
+              "is not the prepared one")
+        newviews = []
+        for payload in wire:
+            category, _, body = parse_envelope(payload)
+            if category != MessageCategory.CONSENSUS:
+                continue
+            msg = decode_message(body)
+            if msg.msg_type == MsgType.NEWVIEW:
+                newviews.append(VC.decode_newview(msg.payload))
+        check(newviews and all(nv.m1_payload == VC.m1_payload(
+            proposed.hash(), proof) for nv in newviews),
+              "the NEWVIEW does not carry the PREPARED proof")
+        # the old leader rejoins: the block from a peer, its seal checked
+        # on SYNC, then the round re-derived from the head
+        net.partitioned.discard(leader.host.name)
+        peer = validators[0].chain
+        check(leader.chain.insert_chain(
+            [peer.block_by_number(4)], commit_sigs=[peer.read_commit_sig(4)],
+            verify_seals=True, lane=sched.Lane.SYNC) == 1,
+              "the old leader did not take the block")
+        leader._vc = 0
+        leader._new_round()  # as the node's own sync rejoin does
+        pump(nodes)  # the votes it held for block 4 are stale now
+        agreed(nodes, 4, "the old leader's rejoin")
+    part("view change", view_change)
+
+    # one round through the Handel overlay, on a localnet of its own
+    handel_out = {}
+
+    def handel():
+        hnodes, _ = localnet("handel")
+        check(all(n.aggregator is not None for n in hnodes),
+              "a node has no aggregator")
+        t0 = time.perf_counter()
+        leader_of(hnodes).start_round_if_leader()
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline and any(
+                n.chain.head_number < 1 for n in hnodes):
+            busy = any([n.process_pending() for n in hnodes])
+            now = time.monotonic()
+            for n in hnodes:
+                n._aggregation_tick(now)
+            if not busy:
+                time.sleep(0.005)
+        handel_out["s"] = time.perf_counter() - t0
+        agreed(hnodes, 1, "the Handel round")
+        stats = [n.aggregation_stats() for n in hnodes]
+        handel_out["stats"] = {k: sum(st[k] for st in stats)
+                               for k in stats[0]}
+        check(handel_out["stats"]["merged"] > 0
+              and handel_out["stats"]["forged"] == 0,
+              f"Handel: {handel_out['stats']}")
+    part("Handel round", handel)
+
+    # live: run_forever threads until LOCALNET_LIVE_BLOCKS more commit
+    live_out = {}
+
+    def live():
+        start = min(n.chain.head_number for n in nodes)
+        goal = start + LOCALNET_LIVE_BLOCKS
+        t0 = time.perf_counter()
+        threads = [n.run_forever(block_time=LOCALNET_BLOCK_TIME)
+                   for n in nodes]
+        try:
+            deadline = time.monotonic() + LOCALNET_LIVE_BUDGET_S
+            while time.monotonic() < deadline and min(
+                    n.chain.head_number for n in nodes) < goal:
+                time.sleep(0.05)
+            live_out["s"] = time.perf_counter() - t0
+        finally:
+            for n in nodes:
+                n.stop()
+            for t in threads:
+                t.join(timeout=30.0)
+        check(not any(t.is_alive() for t in threads),
+              "a pump thread outlived stop()")
+        reached = min(n.chain.head_number for n in nodes)
+        check(reached >= goal, f"live: {reached - start} blocks committed "
+              f"in {LOCALNET_LIVE_BUDGET_S} s, not {LOCALNET_LIVE_BLOCKS}")
+        for num in range(1, reached + 1):
+            seen = {(n.chain.block_by_number(num).hash(),
+                     n.chain.read_commit_sig(num)) for n in nodes}
+            check(len(seen) == 1, f"live: the nodes differ at height {num}")
+        live_out["blocks"] = reached - start
+        live_out["views"] = sorted({n.view_id for n in nodes})
+    part("live rounds", live)
+
+    sched.reset()
+    check_flushes(flushes, "the localnet phase")
+    total = launches()
+    for name in PATH_KERNELS:
+        check(total[name] > 0, f"the localnet phase never launched {name}")
+    by_kind = collections.Counter(kind for kind, _, _ in flushes)
+    waits = {k: (statistics.median(w) * 1e3 if w else None, len(w))
+             for k, w in lane_waits.items()}
+    seconds = time.perf_counter() - started
+    log(f"[{card}] localnet of {NODES} nodes of {KEYS_PER_NODE} keys "
+        f"({committee_size} slots), each chain's seal checked on insert: "
+        "manual rounds " + ", ".join(f"{t:.3f}" for t in round_s) +
+        f" s (empty, transfer, create-validator); the view change and its "
+        f"round {vc_out['s']:.3f} s; the Handel round {handel_out['s']:.3f} "
+        f"s ({handel_out['stats']}); live {live_out['blocks']} blocks in "
+        f"{live_out['s']:.3f} s ({live_out['s'] / live_out['blocks']:.3f} s "
+        f"a block, block time {LOCALNET_BLOCK_TIME} s; views "
+        f"{live_out['views']})")
+    log(f"[{card}] localnet flushes: {by_kind['agg']} aggregate, "
+        f"{by_kind['single']} single-check, each launching its path's "
+        "kernels once; median wait in the queue " + ", ".join(
+            f"{k} {w:.3f} ms over {n}" if w is not None else f"{k} none"
+            for k, (w, n) in waits.items()))
+    log(f"[{card}] localnet phase took {seconds:.3f} s; launches " +
+        ", ".join(f"{n} {k}" for k, n in total.items()))
+    return {"launches": total}
+
+
 SIGN_KERNELS = ("scalar_mul_g1", "scalar_mul_g2", "g2_masked_sum")
 SIGN_KEYS = 256  # keys derived and signatures made on the card
 # lanes the ladders are timed at (the G2 sum's shapes: G2_SUM_TIMED)
@@ -3498,6 +3875,8 @@ def main(argv=None):
                                   in node["launches"].items()) + " launches")
     # the consumers of the checks: their launch counts start from zero
     consumers = consumers_phase(args.seed)
+    # the node itself: a localnet of Nodes, its launch counts from zero
+    localnet = localnet_phase(args.seed)
     # the signing ops: their kernels against the plain versions and timed,
     # then their path through ops/bls.py, its counts from zero; the mesh
     plain_ms = sign_kernels_phase(args.seed, stats)
@@ -3518,6 +3897,7 @@ def main(argv=None):
             "replaces": replaces,
             "launches": counted[name],
             "consumers_launches": consumers["launches"][name],
+            "node_launches": localnet["launches"][name],
             "signing_launches": signing["launches"][name],
             "max_abs_err": stats[name]["max_abs_err"],
             "ms": t["ms"],

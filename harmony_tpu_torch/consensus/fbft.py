@@ -68,8 +68,10 @@ class _Node:
         self.cfg = cfg
         self.decider = decider
         self.log = FBFTLog()
+        # decompressed once per process (every round and every node of
+        # a process shares the committee's keys), not once per round
         self.committee_points = [
-            B.PublicKey.from_bytes(k).point for k in cfg.committee
+            B.pubkey_from_bytes_cached(k).point for k in cfg.committee
         ]
 
     def _commit_payload(self, block_hash: bytes) -> bytes:

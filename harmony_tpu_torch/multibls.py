@@ -10,6 +10,7 @@ aggregate" — the per-phase behavior of consensus message construction
 from __future__ import annotations
 
 from .bls import PrivateKey, PublicKey, Signature, aggregate_sigs
+from .ref.params import R_ORDER
 
 
 class PublicKeys(list):
@@ -40,9 +41,15 @@ class PrivateKeys(list):
         return PublicKeys(k.pub for k in self)
 
     def sign_hash_aggregated(self, msg_hash: bytes) -> Signature:
-        """Sign with every local key and aggregate — exactly what the
-        reference does when constructing PREPARE/COMMIT messages
-        (construct.go:99-114: SignHash per key + Sign.Add)."""
+        """Sign with every local key and aggregate — what the reference
+        does when constructing PREPARE/COMMIT messages
+        (construct.go:99-114: SignHash per key + Sign.Add).  The sum of
+        the per-key signatures sk_i·H(m) is (Σ sk_i)·H(m): one hash and
+        one scalar multiplication by the keys' sum give the same point,
+        and so the same bytes."""
         if not self:
             raise ValueError("no keys")
-        return aggregate_sigs([k.sign_hash(msg_hash) for k in self])
+        total = sum(k.scalar for k in self) % R_ORDER
+        if total == 0:  # the keys cancel: the aggregate is infinity
+            return aggregate_sigs([k.sign_hash(msg_hash) for k in self])
+        return PrivateKey(total).sign_hash(msg_hash)

@@ -47,3 +47,64 @@ def test_the_rule_sees_what_it_forbids():
     mods = [n.module if isinstance(n, ast.ImportFrom) else n.names[0].name
             for n in tree.body if getattr(n, "level", 0) == 0]
     assert [m for m in mods if _forbidden(m)] == ["jax", "harmony_tpu.ops"]
+
+
+# The node layer: each module at the JAX package's path.
+NODE_LAYER = (
+    "crypto_ecdsa", "config", "config.chain", "config.sharding", "core",
+    "core.types", "core.kv", "core.trie", "core.state", "crypto_bn256",
+    "core.vm", "core.state_processor", "core.rawdb", "core.genesis", "obs",
+    "obs.replay", "staking.slash", "crypto_vrf", "core.blockchain",
+    "core.tx_pool", "consensus.safety", "consensus.sender", "p2p",
+    "p2p.gating", "p2p.groups", "p2p.host", "node", "node.registry",
+    "node.services", "node.worker", "node.ingress", "node.cross_shard",
+    "node.node",
+)
+
+
+def test_node_layer_imports_without_jax_or_harmony_tpu():
+    """In a fresh interpreter, every module of the node layer imports and
+    neither JAX nor the JAX package is loaded afterwards."""
+    import subprocess
+    import sys
+
+    code = (
+        "import importlib, sys\n"
+        f"for m in {NODE_LAYER!r}:\n"
+        "    importlib.import_module('harmony_tpu_torch.' + m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'harmony_tpu'))\n"
+        "print(repr(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def _public(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), str(path))
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef,
+                             ast.AsyncFunctionDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+def _source(package: str, module: str) -> Path:
+    base = REPO / package / Path(*module.split("."))
+    return base / "__init__.py" if base.is_dir() else base.with_suffix(".py")
+
+
+@pytest.mark.parametrize("module", NODE_LAYER)
+def test_node_layer_mirrors_the_jax_packages_names(module):
+    """Each copy keeps the JAX module's top-level public names (obs/ keeps
+    those of replay.py, the part ported)."""
+    port = _public(_source("harmony_tpu_torch", module))
+    want = _public(_source("harmony_tpu", module))
+    if module == "obs":
+        want &= _public(_source("harmony_tpu", "obs.replay"))
+    assert want <= port, sorted(want - port)
