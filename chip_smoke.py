@@ -61,7 +61,10 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    on each route: through the scheduler (a QC of 150 of 200 bits and a
    wrong bitmap, 8 single checks with one wrong signer, the engine's
    replay through it), under the exec lock with the scheduler disarmed,
-   and the direct ops/bls.py branch with the device path off.  Every
+   and the direct ops/bls.py branch with the device path off; and one
+   verify_crosslinks_batch of 8 cross-links of the committee's headers,
+   one presenting its neighbour's proof, each verdict the host
+   reference's (the port's ref), one flush of one launch each.  Every
    scheduler flush must launch each kernel of its path exactly once, and
    the routes outside the scheduler their exact launches; node_clean
    after every part;
@@ -74,11 +77,32 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    pool checks on INGRESS, a forged copy refused), one view change whose
    NEWVIEW carries the PREPARED proof, one round through the Handel
    overlay (merged partials, none forged), and run_forever threads
-   until 5 more blocks commit within 120 s; every node at the same head
-   and commit proofs, every flush at its exact launches, node_clean and
-   no dropped message after every part; it prints each part's seconds,
-   the rounds' wall seconds and each lane's median wait;
-8. holds the signing ops' kernels (scalar_mul_g1, scalar_mul_g2,
+   until 5 more blocks commit within 120 s; then a behind Node with no
+   keys, whose registry Downloader syncs over a SyncServer of node 0's
+   chain, every seal checked on the card: a run of future-round gossip
+   spins it up once, and it rejoins at the network's round; every node
+   at the same head and commit proofs, every flush at its exact launches,
+   node_clean and no dropped message after every part; it prints each
+   part's seconds, the rounds' wall seconds and each lane's median wait;
+8. drives the node's sync (sync_phase) at mainnet width: a serving
+   chain of 256 blocks, each sealed by a 150-of-200 commit proof signed
+   on the host, served by SyncServer on loopback; fresh chains sync it
+   through the staged Downloader in windows of 64, every window's seals
+   one batch through Engine.verify_headers_batch on the card (one flush,
+   one launch of each quorum kernel): a full replay, the same headers
+   again on a chain sharing the engine (its cache: no launch), a window
+   with a forged proof refused twice and then healed, fast_sync (its
+   windows, state download and receipts tail) and the snapshot bootstrap
+   from the served pages, both under state_retention=1 and then taking 4
+   more blocks, and one beacon epoch header into an EpochChain by the
+   epoch feed; every synced chain equal to the serving chain, every
+   part's launches exact; it prints seconds per window, blocks per
+   second, the fast sync's seconds and the direct
+   agg_verify_batch_on_device of one window; then mainnet_genesis(0)
+   boots a chain, ref.herumi decodes its 150 keys, and their masked sum
+   under a seeded bitmap of 100, one g1_masked_sum on the card, equals
+   the host reference's bit for bit (mainnet_genesis_phase);
+9. holds the signing ops' kernels (scalar_mul_g1, scalar_mul_g2,
    g2_masked_sum) against their plain versions on the card, bit for bit,
    and times them (sign_kernels_phase, sign_timing_phase; the ladders'
    step also by phase, from a timed build of each, ladder_phases; the G2
@@ -91,9 +115,9 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    library's; the aggregate verified through agg_verify_hashed_on_device
    against a table of the derived keys, one forged lane rejected; each
    call held to its exact launches;
-9. drives parallel/mesh.py over a NCCL process group of world size 1
+10. drives parallel/mesh.py over a NCCL process group of world size 1
    (mesh_phase): each sharded_* equal to the unsharded call;
-10. drives the node's serving surface (serving_phase): a fresh process
+11. drives the node's serving surface (serving_phase): a fresh process
    runs aot.startup_warmup(), which must warm all 43 programs of the
    manifest on the card with no failure, and then its first quorum check
    at 200 slots, which must count a JIT hit and no miss; a second fresh
@@ -108,8 +132,9 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    loopback reads 200, 503, 200, /metrics carries the port's families,
    and prof.capture around one quorum check writes a Chrome trace that
    parses (the kernels it saw printed, or none: not measured);
-11. prints a JSON line describing each kernel (with its launches on
-   the main path, the consumers, the signing path and the localnet),
+12. prints a JSON line describing each kernel (with its launches on
+   the main path, the consumers, the signing path, the localnet and the
+   sync phase),
    then, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line.  Without CUDA,
@@ -120,6 +145,7 @@ and prints no result.  Keys, payloads and signatures come from --seed.
 import argparse
 import collections
 import contextlib
+import dataclasses
 import json
 import math
 import random
@@ -1846,14 +1872,15 @@ def node_clean(what, sheds=0):
           f"{what}: the device breaker is {D.BREAKER.state}")
 
 
-def counted_scheduler():
-    """A fresh global scheduler whose flushes record their launches, by
-    kind: (kind, checks, launches of each kernel).  Counted on the flush
-    thread, the only one that launches while the lanes run."""
+def counted_scheduler(**opts):
+    """A fresh global scheduler (built with ``opts``) whose flushes record
+    their launches, by kind: (kind, checks, launches of each kernel).
+    Counted on the flush thread, the only one that launches while the
+    lanes run."""
     from harmony_tpu_torch import sched
 
     sched.reset()
-    sched.configure(device="cuda")
+    sched.configure(device="cuda", **opts)
     s = sched.scheduler()
     flushes = []
     for kind, attr in (("agg", "_run_agg"), ("single", "_run_single")):
@@ -2176,6 +2203,7 @@ NODES, KEYS_PER_NODE, VIEW_CHANGE_VOTERS = 10, 20, 7
 EPOCH = 1673
 BELOW_QUORUM, FORGED_AT, BELOW_AT = 120, 5, 9
 SIDECAR_ITEMS = 8
+CROSSLINKS, CROSSLINK_FORGED = 8, 5
 
 
 @contextlib.contextmanager
@@ -2213,6 +2241,7 @@ def consumers_phase(seed):
     from harmony_tpu_torch import device as D
     from harmony_tpu_torch import multibls as MB
     from harmony_tpu_torch import sched
+    from harmony_tpu_torch.chain import crosslink as CL
     from harmony_tpu_torch.chain import engine as ENG
     from harmony_tpu_torch.chain.header import Header
     from harmony_tpu_torch.consensus import aggregation as AGG
@@ -2224,6 +2253,7 @@ def consumers_phase(seed):
     from harmony_tpu_torch.consensus.signature import \
         construct_commit_payload, prepare_payload
     from harmony_tpu_torch.ref import bls as RB
+    from harmony_tpu_torch.ref.curve import g1 as RG1
     from harmony_tpu_torch.ref.hash_to_curve import hash_to_g2
     from harmony_tpu_torch.ref.keccak import keccak256
     from harmony_tpu_torch.ref.params import R_ORDER
@@ -2479,6 +2509,46 @@ def consumers_phase(seed):
         check_flushes(flushes, "Handel")
     part("Handel", handel)
 
+    # -- cross-links: one batch of the committee's block headers ------------
+    def crosslinks():
+        links, prev_link = [], bytes(32)
+        for j in range(CROSSLINKS):
+            h = Header(shard_id=0, block_num=3000 + j, epoch=EPOCH,
+                       view_id=3000 + j, parent_hash=prev_link)
+            prev_link = h.hash()
+            sig, bm = sign_header(h, quorum_signers())
+            links.append(CL.CrossLink(
+                shard_id=0, block_num=h.block_num, view_id=h.view_id,
+                epoch=EPOCH, block_hash=h.hash(), signature=sig, bitmap=bm))
+        # a link presenting its neighbour's proof
+        links[CROSSLINK_FORGED] = dataclasses.replace(
+            links[CROSSLINK_FORGED],
+            signature=links[CROSSLINK_FORGED - 1].signature)
+        # the host reference: each link's signers' key sum and pairing
+        # check in the port's ref
+        points = [k.pub.point for k in keys]
+        ref = []
+        for link in links:
+            agg = None
+            for i, bit in enumerate(bits_from_bytes(link.bitmap, COMMITTEE)):
+                if bit:
+                    agg = RG1.add(agg, points[i])
+            ref.append(RB.verify(agg, CL.crosslink_commit_payload(link),
+                                 RB.sig_from_bytes(link.signature)))
+        check(ref == [j != CROSSLINK_FORGED for j in range(CROSSLINKS)],
+              f"the host reference's cross-link verdicts: {ref}")
+        before, n0 = launches(), len(flushes)
+        with recorded_lanes() as lanes:
+            got = CL.verify_crosslinks_batch(ENG.Engine(provider), links)
+        check(got == ref, f"cross-link verdicts {got}, the host's {ref}")
+        check(lanes == [("agg_verify_many", sched.Lane.SYNC)]
+              and [(k, n) for k, n, _ in flushes[n0:]]
+              == [("agg", CROSSLINKS)], f"the cross-links' checks: "
+              f"{lanes}, flushes {flushes[n0:]}")
+        check(since(before) == WINDOW_LAUNCHES, f"the cross-link batch "
+              f"launched {since(before)}")
+    part("cross-links", crosslinks)
+
     # -- the sidecar server -------------------------------------------------
     server = SidecarServer().start()
     client = SidecarClient(server.address)
@@ -2617,7 +2687,8 @@ def localnet_phase(seed):
     from harmony_tpu_torch.chain import engine as ENG
     from harmony_tpu_torch.config.chain import ChainConfig
     from harmony_tpu_torch.consensus import view_change as VC
-    from harmony_tpu_torch.consensus.messages import MsgType, decode_message
+    from harmony_tpu_torch.consensus.messages import FBFTMessage, MsgType, \
+        decode_message, encode_message, sign_message
     from harmony_tpu_torch.core import rawdb
     from harmony_tpu_torch.core.blockchain import Blockchain
     from harmony_tpu_torch.core.genesis import Genesis
@@ -2627,14 +2698,16 @@ def localnet_phase(seed):
         Transaction
     from harmony_tpu_torch.crypto_ecdsa import ECDSAKey
     from harmony_tpu_torch.node.ingress import MessageCategory, \
-        parse_envelope
+        pack_envelope, parse_envelope
     from harmony_tpu_torch.node.node import Node
     from harmony_tpu_torch.node.registry import Registry
     from harmony_tpu_torch.p2p import InProcessNetwork
+    from harmony_tpu_torch.p2p.stream import SyncClient, SyncServer
     from harmony_tpu_torch.ref.params import R_ORDER
     from harmony_tpu_torch.sched.scheduler import LANE_NAMES
     from harmony_tpu_torch.ref import native as NB
     from harmony_tpu_torch.shard.committee import Committee, Slot, State
+    from harmony_tpu_torch.sync import Downloader
 
     check(D._FORCED is None and D.device_enabled(),
           "device_enabled() is not True by AUTO on the card")
@@ -2922,6 +2995,82 @@ def localnet_phase(seed):
         live_out["views"] = sorted({n.view_id for n in nodes})
     part("live rounds", live)
 
+    # a behind node: no keys, a registry downloader over a sync server of
+    # node 0's chain, every synced seal checked on the card
+    behind_out = {}
+
+    def behind():
+        head = nodes[0].chain.head_number
+        cell = []
+        db = MemKV()
+        rawdb.write_shard_state(db, 0, operators)
+        chain = Blockchain(db, genesis, engine=ENG.Engine(
+            lambda shard, epoch: ENG.EpochContext(
+                cell[0].committee_for_epoch(epoch))),
+            blocks_per_epoch=LOCALNET_EPOCH_BLOCKS)
+        cell.append(chain)
+        check(chain.engine.device is True, "the behind node's engine is "
+              "not on the device path")
+        server = SyncServer(nodes[0].chain)
+        reg = Registry(blockchain=chain,
+                       txpool=TxPool(chain_id, 0, chain.state),
+                       host=net.host("late"))
+        late = Node(reg, MB.PrivateKeys.from_keys([]))
+        reg.set("downloader", Downloader(chain, [SyncClient(server.port)],
+                                         verify_seals=True))
+        nets.append([late])
+        try:
+            # a run of gossip for the network's next round: this node is
+            # behind, and spins up its downloader
+            stranger = MB.PrivateKeys.from_keys(
+                [B.PrivateKey(rng.randrange(1, R_ORDER))])
+            msg = sign_message(FBFTMessage(
+                msg_type=MsgType.ANNOUNCE, view_id=nodes[0].view_id,
+                block_num=head + 1, block_hash=b"\x01" * 32,
+                sender_pubkeys=[k.pub.bytes for k in stranger]), stranger)
+            env = pack_envelope(MessageCategory.CONSENSUS,
+                                int(msg.msg_type), encode_message(msg))
+            t0 = time.perf_counter()
+            for _ in range(late.ahead_threshold):
+                late._handle(env)
+            check(late._syncing or late._sync_done.is_set(),
+                  "the behind node did not spin up its downloader")
+            deadline = time.monotonic() + 60.0
+            while time.monotonic() < deadline:
+                late.process_pending()
+                if late.chain.head_number == head and not late._syncing:
+                    break
+                time.sleep(0.02)
+            behind_out["s"] = time.perf_counter() - t0
+            behind_out["blocks"] = head
+            check(late.chain.head_number == head and late.sync_spinups == 1
+                  and late.block_num == head + 1
+                  and late.block_num == nodes[0].block_num,
+                  f"the behind node: head {late.chain.head_number} of "
+                  f"{head}, {late.sync_spinups} spin-ups, round "
+                  f"{late.block_num} (the network's {nodes[0].block_num})")
+            for num in range(1, head + 1):
+                check((late.chain.block_by_number(num).hash(),
+                       late.chain.read_commit_sig(num))
+                      == (nodes[0].chain.block_by_number(num).hash(),
+                          nodes[0].chain.read_commit_sig(num)),
+                      f"the behind node differs at height {num}")
+        finally:
+            late.stop()
+            server.close()
+            if late._sync_thread is not None:
+                late._sync_thread.join(timeout=30.0)
+        check(late._sync_thread is None or not late._sync_thread.is_alive(),
+              "the behind node's sync thread outlived it")
+        return head
+    behind_before = launches()
+    behind_head = part("the behind node's sync", behind)
+    behind_windows = -(-behind_head // SYNC_WINDOW)
+    check(since(behind_before) == {k: behind_windows * n for k, n in
+                                   WINDOW_LAUNCHES.items()},
+          f"the behind node's sync of {behind_head} blocks launched "
+          f"{since(behind_before)}, not {behind_windows} windows' worth")
+
     sched.reset()
     check_flushes(flushes, "the localnet phase")
     total = launches()
@@ -2939,7 +3088,9 @@ def localnet_phase(seed):
         f"s ({handel_out['stats']}); live {live_out['blocks']} blocks in "
         f"{live_out['s']:.3f} s ({live_out['s'] / live_out['blocks']:.3f} s "
         f"a block, block time {LOCALNET_BLOCK_TIME} s; views "
-        f"{live_out['views']})")
+        f"{live_out['views']}); a behind node synced {behind_out['blocks']}"
+        f" blocks, every seal checked, and rejoined at the network's round "
+        f"in {behind_out['s']:.3f} s")
     log(f"[{card}] localnet flushes: {by_kind['agg']} aggregate, "
         f"{by_kind['single']} single-check, each launching its path's "
         "kernels once; median wait in the queue " + ", ".join(
@@ -2948,6 +3099,483 @@ def localnet_phase(seed):
     log(f"[{card}] localnet phase took {seconds:.3f} s; launches " +
         ", ".join(f"{n} {k}" for k, n in total.items()))
     return {"launches": total}
+
+
+# the node's sync (sync_phase): a serving chain of SYNC_BLOCKS sealed
+# blocks at mainnet width (200 slots, bucket 256, the localnet's
+# operators), synced by the staged downloader over p2p/stream.py in
+# windows of SYNC_WINDOW, every window's seals checked on the card
+SYNC_BLOCKS = 256
+SYNC_WINDOW = 64  # sync/staged.py BATCH
+SYNC_TAIL = 4  # blocks the serving chain grows after the fast syncs
+SYNC_FORGED_AT = 150  # a block of the third window (129-192)
+BEACON_EPOCH_BLOCKS = 16
+# a SYNC flush waits this long for its batch to fill; the default 2 ms
+# could split a window's 64 checks, which the engine submits one by one,
+# over two flushes when the host is slow
+SYNC_FLUSH_WINDOW_S = 0.02
+# a window's seal checks (one flush: a batch, or a lone check) launch
+# each kernel of the quorum check once
+WINDOW_LAUNCHES = {k: int(k in PATH_KERNELS) for k in KERNELS}
+
+
+def sync_phase(seed):
+    """The node's sync on the card: a serving Blockchain of SYNC_BLOCKS
+    empty blocks (the last SYNC_TAIL carry a transfer) at mainnet width,
+    each sealed by a 150-of-200 commit proof the host signs (one
+    signature by the signers' key sum), served by SyncServer on loopback.
+    Fresh chains sync it through the staged Downloader: a full replay in
+    windows of SYNC_WINDOW (every window one batched seal check through
+    Engine.verify_headers_batch on the SYNC lane); the same headers again
+    on a chain sharing the engine (its verified cache: no launch); a
+    window with a forged proof refused, twice (the forgery re-checked,
+    the verified ones cached), then healed; fast_sync with its
+    seal-checked windows, state download and receipts tail; the snapshot
+    bootstrap from the served pages; both built with state_retention=1
+    and then taking SYNC_TAIL more blocks through insert_chain; one beacon
+    epoch header into an EpochChain by the epoch feed.  Every part's
+    launches are exact; every synced chain equals the serving chain."""
+    import statistics
+
+    from harmony_tpu_torch import bls as B
+    from harmony_tpu_torch import device as D
+    from harmony_tpu_torch import sched
+    from harmony_tpu_torch.chain import engine as ENG
+    from harmony_tpu_torch.config.chain import ChainConfig
+    from harmony_tpu_torch.consensus.mask import bits_from_bytes
+    from harmony_tpu_torch.consensus.signature import \
+        construct_commit_payload
+    from harmony_tpu_torch.core import rawdb
+    from harmony_tpu_torch.core.blockchain import Blockchain, ChainError
+    from harmony_tpu_torch.core.epochchain import EpochChain
+    from harmony_tpu_torch.core.genesis import Genesis
+    from harmony_tpu_torch.core.kv import MemKV
+    from harmony_tpu_torch.core.tx_pool import TxPool
+    from harmony_tpu_torch.core.types import Transaction
+    from harmony_tpu_torch.crypto_ecdsa import ECDSAKey
+    from harmony_tpu_torch.node.worker import Worker
+    from harmony_tpu_torch.p2p.stream import SyncClient, SyncServer
+    from harmony_tpu_torch.ref import bls as RB
+    from harmony_tpu_torch.ref import native as NB
+    from harmony_tpu_torch.ref.hash_to_curve import hash_to_g2
+    from harmony_tpu_torch.ref.keccak import keccak256
+    from harmony_tpu_torch.ref.params import R_ORDER
+    from harmony_tpu_torch.shard.committee import Committee, Slot, State
+    from harmony_tpu_torch.sync import Downloader
+    from harmony_tpu_torch.sync.epoch_feed import EpochFeed
+
+    check(D._FORCED is None and D.device_enabled(),
+          "device_enabled() is not True by AUTO on the card")
+    check(NB.available(), "the native host library did not load")
+    node_clean("before the sync phase")
+    started = time.perf_counter()
+    card = card_line()
+    rng = random.Random(seed + 16)
+    keys = [B.PrivateKey(rng.randrange(1, R_ORDER)) for _ in range(COMMITTEE)]
+    committee = [k.pub.bytes for k in keys]
+    sender = ECDSAKey.from_seed(b"sync sender %d" % seed)
+    to = b"\x0b" * 20
+    genesis = Genesis(
+        config=ChainConfig(chain_id=LOCALNET_CHAIN_ID, leader_rotation_epoch=0),
+        shard_id=0, alloc={sender.address(): 10**24}, committee=committee)
+    operators = State(epoch=0, shards=[Committee(shard_id=0, slots=[
+        Slot(ecdsa_address=bytes([1 + i // KEYS_PER_NODE]) * 20,
+             bls_pubkey=k) for i, k in enumerate(committee)])])
+    s, flushes = counted_scheduler(flush_window_s=SYNC_FLUSH_WINDOW_S)
+    reset_launches()
+    parts, servers = {}, []
+
+    def bitmap(signers):
+        out = bytearray((COMMITTEE + 7) >> 3)
+        for i in signers:
+            out[i >> 3] |= 1 << (i & 7)
+        return bytes(out)
+
+    def seal(chain, header, payload=None):
+        """150 of the 200 keys' commit proof: one signature by the sum of
+        their secret keys, as a multi-key node signs."""
+        if payload is None:
+            payload = construct_commit_payload(
+                header.hash(), header.block_num, header.view_id,
+                chain.config.is_staking(header.epoch))
+        signers = rng.sample(range(COMMITTEE), QUORUM)
+        sig = RB.sig_to_bytes(RB.sign(
+            sum(keys[i].scalar for i in signers) % R_ORDER, payload))
+        return sig + bitmap(signers)
+
+    def make_chain(engine=None, db=None, **kw):
+        db = MemKV() if db is None else db
+        rawdb.write_shard_state(db, 0, operators)
+        return Blockchain(db, genesis, engine=engine,
+                          blocks_per_epoch=LOCALNET_EPOCH_BLOCKS, **kw)
+
+    def card_engine(chain_of):
+        engine = ENG.Engine(lambda shard, epoch: ENG.EpochContext(
+            chain_of().committee_for_epoch(epoch)))
+        check(engine.device is True, "a sync engine is not on the device "
+              "path")
+        return engine
+
+    def checked_chain(engine=None, **kw):
+        cell = []
+        chain = make_chain(engine or card_engine(lambda: cell[0]), **kw)
+        cell.append(chain)
+        return chain
+
+    def grow(chain, n, transfers=0):
+        """n blocks on ``chain``, the last ``transfers`` with one transfer
+        each; each sealed, its proof stored (the next header carries
+        it)."""
+        pool = TxPool(LOCALNET_CHAIN_ID, 0, chain.state)
+        worker = Worker(chain, pool)
+        for i in range(n):
+            if i >= n - transfers:
+                pool.add(Transaction(
+                    nonce=chain.state().nonce(sender.address()),
+                    gas_price=1, gas_limit=25_000, shard_id=0, to_shard=0,
+                    to=to, value=1000 + chain.head_number,
+                ).sign(sender, LOCALNET_CHAIN_ID))
+            block = worker.propose_block(view_id=chain.head_number + 1)
+            check(chain.insert_chain([block], verify_seals=False) == 1,
+                  f"the serving chain refused its block {block.block_num}")
+            chain.write_commit_sig(block.block_num, seal(chain,
+                                                         block.header))
+            pool.drop_applied()
+
+    def stored(chain, upto=None):
+        """Per height: the stored hash, state root and commit proof; the
+        head's state root."""
+        upto = chain.head_number if upto is None else upto
+        return [(rawdb.read_canonical_hash(chain.db, n),
+                 rawdb.read_header(chain.db, n).root,
+                 rawdb.read_commit_sig(chain.db, n))
+                for n in range(1, upto + 1)]
+
+    def equal_to_serving(chain, what):
+        check(chain.head_number == serving.head_number
+              and rawdb.read_head_number(chain.db) == chain.head_number,
+              f"{what}: head {chain.head_number} (stored "
+              f"{rawdb.read_head_number(chain.db)}), not "
+              f"{serving.head_number}")
+        check(stored(chain) == stored(serving), f"{what}: the synced "
+              "blocks, roots or proofs differ from the serving chain's")
+        check(chain.state().root() == serving.state().root(),
+              f"{what}: the head's state root differs")
+
+    def windows_of(chain, method="insert_chain"):
+        """Record each call of ``chain.<method>`` (a window): its blocks,
+        launches and seconds."""
+        calls = []
+        fn = getattr(chain, method)
+
+        def recorded(blocks, *a, **k):
+            before, t0 = launches(), time.perf_counter()
+            try:
+                return fn(blocks, *a, **k)
+            finally:
+                calls.append((len(blocks), since(before),
+                              time.perf_counter() - t0))
+        setattr(chain, method, recorded)
+        return calls
+
+    def part(name, fn, want):
+        """One part: its launches must be ``want`` windows' worth (each
+        kernel of the quorum check ``want`` times, no other kernel);
+        every flush launches its path's kernels once; node_clean."""
+        before, t0, n0 = launches(), time.perf_counter(), len(flushes)
+        out = fn()
+        made = since(before)
+        parts[name] = (made, time.perf_counter() - t0, len(flushes) - n0)
+        log(f"sync, {name}: {parts[name][1]:.3f} s, {parts[name][2]} "
+            "flushes, launches " + ", ".join(
+                f"{n} {k}" for k, n in made.items() if n))
+        check(made == {k: want * n for k, n in WINDOW_LAUNCHES.items()},
+              f"sync, {name}: launched {made}, not {want} windows' worth")
+        check_flushes(flushes[n0:], f"sync, {name}")
+        node_clean(f"sync, {name}")
+        return out
+
+    # -- the serving chain ---------------------------------------------------
+    t0 = time.perf_counter()
+    serving = make_chain()
+    grow(serving, SYNC_BLOCKS, transfers=SYNC_TAIL)
+    setup_s = time.perf_counter() - t0
+    check(serving.head_number == SYNC_BLOCKS
+          and serving.state().balance(to) > 0, "the serving chain is not "
+          "as built")
+    server = SyncServer(serving)
+    servers.append(server)
+    out, downloaders = {}, {}
+    try:
+        # -- a full replay, every window's seals on the card -----------------
+        replay = checked_chain()
+        replay_windows = windows_of(replay)
+        seal_ms = []
+        verify = replay.engine.verify_headers_batch
+
+        def timed_verify(items, *a, **k):
+            t = time.perf_counter()
+            try:
+                return verify(items, *a, **k)
+            finally:
+                seal_ms.append(1e3 * (time.perf_counter() - t))
+        replay.engine.verify_headers_batch = timed_verify
+        n_windows = SYNC_BLOCKS // SYNC_WINDOW
+
+        def full_replay():
+            dl = Downloader(replay, [SyncClient(server.port)],
+                            batch=SYNC_WINDOW, verify_seals=True)
+            with recorded_lanes() as lanes:
+                t = time.perf_counter()
+                res = dl.sync_once()
+                out["replay_s"] = time.perf_counter() - t
+            check(res.inserted == SYNC_BLOCKS and not res.errors,
+                  f"the full replay: {res}")
+            equal_to_serving(replay, "the full replay")
+            check([(n, made) for n, made, _ in replay_windows] ==
+                  [(SYNC_WINDOW, WINDOW_LAUNCHES)] * n_windows,
+                  "the full replay's windows and their launches: "
+                  f"{[(n, made) for n, made, _ in replay_windows]}")
+            check(lanes == [("agg_verify_many", sched.Lane.SYNC)]
+                  * n_windows, f"the full replay's lanes: {lanes}")
+            check([(kind, n) for kind, n, _ in flushes[-n_windows:]]
+                  == [("agg", SYNC_WINDOW)] * n_windows,
+                  f"a window's checks were not one flush: {flushes}")
+        part("full replay", full_replay, n_windows)
+        out["seal_ms"] = list(seal_ms)
+
+        # -- the same headers on a chain sharing the engine: all cached ------
+        def cached():
+            chain = checked_chain(engine=replay.engine)
+            res = Downloader(chain, [SyncClient(server.port)],
+                             batch=SYNC_WINDOW, verify_seals=True
+                             ).sync_once()
+            check(res.inserted == SYNC_BLOCKS and not res.errors,
+                  f"the cached sync: {res}")
+            equal_to_serving(chain, "the cached sync")
+        part("the same headers, verified cache", cached, 0)
+
+        # -- a forged window: refused, refused again, healed -----------------
+        forged_payload = keccak256(b"a forged seal, seed %d" % seed)
+
+        class ForgingClient(SyncClient):
+            def get_blocks_by_number(self, start, count, deadline=None):
+                return [(blk, seal(serving, blk.header, forged_payload)
+                         if blk.block_num == SYNC_FORGED_AT else sig)
+                        for blk, sig in super().get_blocks_by_number(
+                            start, count, deadline)]
+
+        forged = checked_chain()
+        window_start = (SYNC_FORGED_AT - 1) // SYNC_WINDOW * SYNC_WINDOW + 1
+        refusal = [f"insert failed at {window_start}: bad commit signature "
+                   f"on block {SYNC_FORGED_AT}"]
+
+        def refused():
+            res = Downloader(forged, [ForgingClient(server.port)],
+                             batch=SYNC_WINDOW, verify_seals=True
+                             ).sync_once()
+            check(res.errors == refusal, f"the forged window: {res}")
+            check(forged.head_number == window_start - 1
+                  and rawdb.read_head_number(forged.db) == window_start - 1
+                  and stored(forged) == stored(serving, window_start - 1),
+                  f"the forged window: head {forged.head_number}, or what "
+                  "it kept differs from the serving chain")
+        # the first run checks the windows up to the forged one's
+        part("a forged window", refused, window_start // SYNC_WINDOW + 1)
+        # again: only the forgery is checked (the engine caches verified
+        # seals only), one lone check
+        part("the forged window again", refused, 1)
+
+        def healed():
+            res = Downloader(forged, [SyncClient(server.port)],
+                             batch=SYNC_WINDOW, verify_seals=True
+                             ).sync_once()
+            check(not res.errors, f"the healed sync: {res}")
+            equal_to_serving(forged, "the healed sync")
+        # the forged block's honest seal alone, then the last window
+        part("the forged window healed", healed,
+             n_windows - window_start // SYNC_WINDOW)
+
+        # -- fast sync: seal-checked windows, state, receipts tail -----------
+        fast = checked_chain(state_retention=1)
+        fast_windows = windows_of(fast, "insert_headers_fast")
+
+        def fast_sync():
+            dl = Downloader(fast, [SyncClient(server.port)],
+                            batch=SYNC_WINDOW, verify_seals=True)
+            t = time.perf_counter()
+            res = dl.fast_sync(receipts_tail=SYNC_WINDOW)
+            out["fast_s"] = time.perf_counter() - t
+            check(res.inserted == SYNC_BLOCKS and not res.errors,
+                  f"fast sync: {res}")
+            equal_to_serving(fast, "fast sync")
+            check([(n, made) for n, made, _ in fast_windows] ==
+                  [(SYNC_WINDOW, WINDOW_LAUNCHES)] * n_windows,
+                  f"fast sync's windows: {fast_windows}")
+            tail = range(SYNC_BLOCKS - SYNC_TAIL + 1, SYNC_BLOCKS + 1)
+            check(all(rawdb.read_receipts(fast.db, n)
+                      and rawdb.read_receipts(fast.db, n)
+                      == rawdb.read_receipts(serving.db, n) for n in tail),
+                  "fast sync's receipts tail differs from the serving "
+                  "chain's")
+            downloaders["fast"] = dl
+        part("fast sync", fast_sync, n_windows)
+
+        # -- the snapshot bootstrap: install_snapshot from the served pages --
+        boot = checked_chain(state_retention=1)
+
+        def bootstrap():
+            dl = Downloader(boot, [SyncClient(server.port)],
+                            batch=SYNC_WINDOW, verify_seals=True,
+                            snapshot_threshold=SYNC_WINDOW)
+            t = time.perf_counter()
+            res = dl.sync_once()
+            out["boot_s"] = time.perf_counter() - t
+            check(dl.snapshot_bootstraps == 1
+                  and dl.last_snapshot_block == SYNC_BLOCKS
+                  and res.inserted == SYNC_BLOCKS and not res.errors,
+                  f"the snapshot bootstrap: {res}, "
+                  f"{dl.snapshot_bootstraps} bootstraps")
+            check(boot.head_number == SYNC_BLOCKS
+                  and boot.state().root() == serving.state().root()
+                  and rawdb.read_canonical_hash(boot.db, SYNC_BLOCKS)
+                  == rawdb.read_canonical_hash(serving.db, SYNC_BLOCKS),
+                  "the snapshot bootstrap's head differs")
+            downloaders["boot"] = dl
+        part("snapshot bootstrap", bootstrap, 0)
+
+        # -- SYNC_TAIL more blocks into both, under state_retention=1 --------
+        grow(serving, SYNC_TAIL, transfers=SYNC_TAIL)
+
+        def tail():
+            for chain, dl in ((fast, downloaders["fast"]),
+                              (boot, downloaders["boot"])):
+                res = dl.sync_once()
+                check(res.inserted == SYNC_TAIL and not res.errors,
+                      f"the tail: {res}")
+                check(chain.head_number == serving.head_number
+                      and rawdb.read_head_number(chain.db)
+                      == chain.head_number
+                      and chain.state().root() == serving.state().root(),
+                      "the tail: a retained chain differs from the "
+                      "serving chain")
+                try:
+                    chain.state_at(SYNC_BLOCKS)
+                    pruned = False
+                except ChainError:
+                    pruned = True
+                check(pruned, "state_retention=1 kept an old state")
+        part("the tail into the fast-synced and bootstrapped chains", tail, 2)
+
+        # -- one beacon epoch header into an EpochChain -----------------------
+        beacon_db = MemKV()
+        rawdb.write_shard_state(beacon_db, 1, operators)
+        beacon = Blockchain(beacon_db, genesis,
+                            blocks_per_epoch=BEACON_EPOCH_BLOCKS)
+        grow(beacon, BEACON_EPOCH_BLOCKS)
+        beacon_server = SyncServer(beacon)
+        servers.append(beacon_server)
+
+        def epoch_feed():
+            cell = []
+            ec = EpochChain(MemKV(), lambda shard: committee,
+                            engine=ENG.Engine(
+                                lambda shard, epoch: ENG.EpochContext(
+                                    cell[0].committee_for(shard, epoch))))
+            cell.append(ec)
+            feed = EpochFeed(ec, SyncClient(beacon_server.port),
+                             blocks_per_epoch=BEACON_EPOCH_BLOCKS)
+            check(feed.feed_once() == 1 and ec.head_epoch() == 0
+                  and ec.committee_for(0, 1) == committee
+                  and ec.header_for_epoch(0).hash()
+                  == beacon.header_by_number(BEACON_EPOCH_BLOCKS - 1).hash(),
+                  "the epoch feed did not follow the beacon's epoch 0")
+        part("the epoch feed", epoch_feed, 1)
+    finally:
+        for srv in servers:
+            srv.close()
+
+    # the launches of the sync path, before the direct call's timing
+    total = launches()
+    # the direct entry point on the full replay's first window
+    table = replay.engine.epoch_context(0, 0).committee_table()
+    first = [(serving.header_by_number(n), rawdb.read_commit_sig(
+        serving.db, n)) for n in range(1, SYNC_WINDOW + 1)]
+    bits = [bits_from_bytes(p[96:], COMMITTEE) for _, p in first]
+    hs = [hash_to_g2(construct_commit_payload(
+        h.hash(), h.block_num, h.view_id, True)) for h, _ in first]
+    sigs = [RB.sig_from_bytes(p[:96]) for _, p in first]
+    direct_ms = median_ms(D.agg_verify_batch_on_device, table, bits, hs,
+                          sigs, want=[True] * SYNC_WINDOW)
+    node_clean("the sync phase's direct calls")
+    sched.reset()
+    seconds = time.perf_counter() - started
+    log(f"[{card}] sync of {SYNC_BLOCKS} blocks at {COMMITTEE} slots "
+        f"(150-of-200 seals) in windows of {SYNC_WINDOW}: full replay "
+        f"{out['replay_s']:.3f} s ({SYNC_BLOCKS / out['replay_s']:.1f} "
+        f"blocks/s; {out['replay_s'] / n_windows:.3f} s a window; each "
+        "window's insert " + ", ".join(
+            f"{t:.3f}" for _, _, t in replay_windows) + " s, its "
+        "seal check " + ", ".join(f"{t:.1f}" for t in out["seal_ms"]) +
+        " ms); "
+        f"fast sync {out['fast_s']:.3f} s; snapshot bootstrap "
+        f"{out['boot_s']:.3f} s; direct agg_verify_batch_on_device of one "
+        f"window's {SYNC_WINDOW} seals {direct_ms[0]:.3f} ms (median of "
+        f"{MEDIAN_CALLS}; {direct_ms[1]:.3f} to {direct_ms[2]:.3f}); the "
+        f"serving chain built in {setup_s:.3f} s; the scheduler's flush "
+        f"window {SYNC_FLUSH_WINDOW_S * 1e3:.0f} ms")
+    log(f"[{card}] sync phase took {seconds:.3f} s; launches " +
+        ", ".join(f"{n} {k}" for k, n in total.items()))
+    return {"launches": total}
+
+
+MAINNET_KEYS = 150  # the era-0 genesis committee of a mainnet shard
+
+
+def mainnet_genesis_phase(seed):
+    """mainnet_genesis(0) boots a port Blockchain; ref.herumi decodes its
+    150 real keys (the mainnet wire format), and their masked sum under a
+    seeded bitmap of two thirds of them, computed on the card by
+    device.masked_pubkey_sum (one g1_masked_sum launch), must equal the
+    host reference's sum bit for bit."""
+    from harmony_tpu_torch import device as D
+    from harmony_tpu_torch.core.blockchain import Blockchain
+    from harmony_tpu_torch.core.genesis import mainnet_genesis
+    from harmony_tpu_torch.core.kv import MemKV
+    from harmony_tpu_torch.ref import herumi as HM
+    from harmony_tpu_torch.ref.curve import g1
+
+    node_clean("before the mainnet genesis")
+    gen = mainnet_genesis(shard_id=0)
+    chain = Blockchain(MemKV(), gen, blocks_per_epoch=LOCALNET_EPOCH_BLOCKS)
+    check(len(gen.committee) == MAINNET_KEYS and chain.head_number == 0
+          and chain.committee_for_epoch(0) == gen.committee,
+          "mainnet_genesis(0) did not boot a chain with its committee")
+    points = [HM.g1_deserialize(k) for k in gen.committee]
+    check(None not in points
+          and [HM.g1_serialize(p) for p in points] == gen.committee,
+          "a mainnet genesis key did not decode and re-encode")
+    rng = random.Random(seed + 17)
+    signers = set(rng.sample(range(MAINNET_KEYS), 2 * MAINNET_KEYS // 3))
+    bits = [int(i in signers) for i in range(MAINNET_KEYS)]
+    want = None
+    for i in sorted(signers):
+        want = g1.add(want, points[i])
+
+    def no_host_answer():
+        check(False, "the mainnet key sum was answered on the host")
+
+    before = launches()
+    got = D.masked_pubkey_sum(points, bits, no_host_answer)
+    made = since(before)
+    check(got == want, "the card's masked sum of the mainnet keys differs "
+          "from the host reference's")
+    check(made == {k: int(k == "g1_masked_sum") for k in made},
+          f"the mainnet key sum launched {made}")
+    node_clean("the mainnet genesis")
+    log(f"mainnet genesis: shard 0's {MAINNET_KEYS} herumi keys decoded; "
+        f"the masked sum of {len(signers)} on the card (one g1_masked_sum, "
+        "bucket 256) equals the host reference's")
 
 
 SIGN_KERNELS = ("scalar_mul_g1", "scalar_mul_g2", "g2_masked_sum")
@@ -3877,6 +4505,10 @@ def main(argv=None):
     consumers = consumers_phase(args.seed)
     # the node itself: a localnet of Nodes, its launch counts from zero
     localnet = localnet_phase(args.seed)
+    # the node's sync: the staged downloader over p2p/stream.py, every
+    # window's seals on the card, its launch counts from zero
+    sync = sync_phase(args.seed)
+    mainnet_genesis_phase(args.seed)
     # the signing ops: their kernels against the plain versions and timed,
     # then their path through ops/bls.py, its counts from zero; the mesh
     plain_ms = sign_kernels_phase(args.seed, stats)
@@ -3898,6 +4530,7 @@ def main(argv=None):
             "launches": counted[name],
             "consumers_launches": consumers["launches"][name],
             "node_launches": localnet["launches"][name],
+            "sync_launches": sync["launches"][name],
             "signing_launches": signing["launches"][name],
             "max_abs_err": stats[name]["max_abs_err"],
             "ms": t["ms"],

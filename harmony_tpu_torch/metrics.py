@@ -7,9 +7,10 @@ stdlib only: the primitives (``LockedCounters``, ``Counter``, ``Gauge``,
 ``Histogram``), ``process_sample``, ``Registry`` and ``MetricsServer``.
 
 ``Registry.expose`` renders the families of the modules the port has:
-device, resilience, sched, process, health, governor, prof and aot.  The
-JAX package's p2p, slash, netem, snapshot and obs families come with
-those modules, which the port does not have yet.
+device, resilience, sched, p2p, slash, process, health, governor, prof,
+aot and snapshot.  The JAX package's netem and obs families come with
+the chaos harness and ``obs/{sink,timeline}.py``, which the port does
+not have yet.
 """
 
 from __future__ import annotations
@@ -298,6 +299,8 @@ class Registry:
         lines.append(self._device_counters())
         lines.append(self._resilience_counters())
         lines.append(self._sched_counters())
+        lines.append(self._p2p_counters())
+        lines.append(self._slash_counters())
         lines.append(self._process_gauges())
         lines.append(self._health_metrics())
         lines.append(self._governor_metrics())
@@ -305,6 +308,7 @@ class Registry:
         if prof:
             lines.append(prof)
         lines.append(self._aot_counters())
+        lines.append(self._snapshot_counters())
         return "\n".join(lines) + "\n"
 
     @staticmethod
@@ -350,6 +354,79 @@ class Registry:
         from . import governor as GV
 
         return GV.expose()
+
+    @staticmethod
+    def _p2p_counters() -> str:
+        """Hostile-wire defense surface (p2p.host module singletons):
+        invalid-message verdicts per transport, the throttle/drop/ban
+        ladder, and the worst live per-peer score per host."""
+        from .p2p import host as PH
+
+        out = [
+            "# HELP harmony_p2p_invalid_messages_total invalid-message "
+            "events by kind (REJECT verdicts, throttles, drops, bans)",
+            "# TYPE harmony_p2p_invalid_messages_total counter",
+        ]
+        for kind, v in PH.P2P_COUNTERS.items():
+            out.append(
+                f'harmony_p2p_invalid_messages_total{{kind="{kind}"}} {v}'
+            )
+        out.append(
+            "# HELP harmony_p2p_peer_score worst per-peer gossip "
+            "score observed at each host since process start "
+            "(a low-water mark, not a live reading)\n"
+            "# TYPE harmony_p2p_peer_score gauge"
+        )
+        for host_name, score in sorted(PH.worst_peer_scores().items()):
+            out.append(
+                f'harmony_p2p_peer_score{{host="{host_name}"}} {score:g}'
+            )
+        out.append(PH.INBOUND_VOTES.expose())
+        return "\n".join(out)
+
+    @staticmethod
+    def _slash_counters() -> str:
+        """Double-sign slashing pipeline (staking.slash module
+        singletons): detected -> gossiped -> queued -> included ->
+        verified -> applied event counts plus the atto amounts moved."""
+        from .staking import slash as SL
+
+        out = [
+            "# HELP harmony_slash_events_total slashing pipeline "
+            "events by stage",
+            "# TYPE harmony_slash_events_total counter",
+        ]
+        for kind, v in SL.COUNTERS.items():
+            out.append(
+                f'harmony_slash_events_total{{stage="{kind}"}} {v}'
+            )
+        out.append(
+            "# HELP harmony_slash_amount_atto_total atto slashed from "
+            "offenders / rewarded to reporters\n"
+            "# TYPE harmony_slash_amount_atto_total counter"
+        )
+        for kind, v in SL.AMOUNTS.items():
+            out.append(
+                f'harmony_slash_amount_atto_total{{kind="{kind}"}} {v}'
+            )
+        return "\n".join(out)
+
+    @staticmethod
+    def _snapshot_counters() -> str:
+        """Snapshot serve/bootstrap families (p2p.stream and
+        sync.staged module singletons): late-join bootstrap attempts by
+        outcome, account bytes installed, and responses served to
+        joining peers — the
+        operator's answer to 'did the late joiner take the fast path,
+        and who is feeding it?'."""
+        from .p2p import stream as PS
+        from .sync import staged as SS
+
+        return "\n".join([
+            SS.SNAPSHOT_BOOTSTRAPS.expose(),
+            SS.SNAPSHOT_BYTES.expose(),
+            PS.SNAPSHOT_SERVED.expose(),
+        ])
 
     @staticmethod
     def _device_counters() -> str:

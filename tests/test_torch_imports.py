@@ -58,7 +58,11 @@ NODE_LAYER = (
     "core.tx_pool", "consensus.safety", "consensus.sender", "p2p",
     "p2p.gating", "p2p.groups", "p2p.host", "node", "node.registry",
     "node.services", "node.worker", "node.ingress", "node.cross_shard",
-    "node.node",
+    "node.node", "core.snapshot", "accounts", "accounts.abi",
+    "accounts.bech32", "accounts.hd", "config.genesis_accounts",
+    "ref.herumi", "chain.crosslink", "staking.availability",
+    "chain.finalize", "webhooks", "core.epochchain", "p2p.stream",
+    "sync", "sync.epoch_feed", "sync.staged",
 )
 
 

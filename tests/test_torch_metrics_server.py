@@ -122,7 +122,9 @@ def test_probes_answer_as_the_jax_packages_server():
 
 
 def test_the_servers_routes():
-    """/metrics carries the port's families; /debug/pprof/* and
+    """/metrics carries the port's families (p2p, slash and snapshot
+    among them; netem and the round timeline's wait for their modules);
+    /debug/pprof/* and
     /debug/trace answer; an unknown route is a 404; stopping a server
     that never started is a no-op."""
     from harmony_tpu_torch import aot, sched  # noqa: F401 — their families
@@ -149,9 +151,13 @@ def test_the_servers_routes():
                        "harmony_health_up", "harmony_governor_state",
                        "harmony_prof_stage_seconds",
                        "harmony_aot_fallback_total",
-                       "harmony_aot_cache_total", "harmony_test_total 2"):
+                       "harmony_aot_cache_total",
+                       "harmony_p2p_invalid_messages_total",
+                       "harmony_slash_events_total",
+                       "harmony_snapshot_bootstrap_total",
+                       "harmony_test_total 2"):
             assert family in text, family
-        for family in ("harmony_p2p_", "harmony_slash_", "harmony_snapshot"):
+        for family in ("harmony_netem_", "harmony_round_phase_seconds"):
             assert family not in text
         status, body = _get(srv.port, "/debug/pprof/threadz")
         assert status == 200 and b"MainThread" in body
@@ -165,6 +171,30 @@ def test_the_servers_routes():
         srv.stop()
     T_MT.MetricsServer(T_MT.Registry(), port=0).stop()
     assert T_MT.process_sample().keys() == J_MT.process_sample().keys()
+
+
+def _family_shape(text):
+    """The rendered families' HELP and TYPE lines, and the samples of the
+    fixed-key tables (labels ``kind`` and ``stage``); samples whose labels
+    depend on what this process ran (hosts, outcomes, votes) left out."""
+    heads = [line for line in text.splitlines() if line.startswith("#")]
+    fixed = sorted(line.split(" ")[0] for line in text.splitlines()
+                   if not line.startswith("#")
+                   and ('{kind="' in line or '{stage="' in line)
+                   and "inbound_votes" not in line)
+    return heads, fixed
+
+
+@pytest.mark.parametrize("family", ("_p2p_counters", "_slash_counters",
+                                    "_snapshot_counters"))
+def test_registry_families_equal_the_jax_packages(family):
+    """The p2p, slash and snapshot families render with the JAX package's
+    names, help, types and fixed label sets, and /metrics carries them."""
+    got = getattr(T_MT.Registry, family)()
+    assert _family_shape(got) == _family_shape(getattr(J_MT.Registry,
+                                                       family)())
+    assert all(line in T_MT.Registry().expose()
+               for line in _family_shape(got)[0])
 
 
 def _span_tree(m):
