@@ -132,9 +132,27 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    loopback reads 200, 503, 200, /metrics carries the port's families,
    and prof.capture around one quorum check writes a Chrome trace that
    parses (the kernels it saw printed, or none: not measured);
-12. prints a JSON line describing each kernel (with its launches on
-   the main path, the consumers, the signing path, the localnet and the
-   sync phase),
+12. drives the node binary (boot_phase): a bootnode and four processes
+   of ``python -m harmony_tpu_torch.cli`` on this one card, each holding
+   50 of 200 dev keys on its own native-KV datadir, tracing into one span
+   directory: every node commits 8 blocks with one hash at each height,
+   a dev-genesis transfer sent over hmy_sendRawTransaction lands with the
+   same balances on every node, a WebSocket newHeads subscription gets
+   every head, the explorer and Rosetta agree with RPC; node 3 stops on
+   SIGTERM at block 4 and comes back on its datadir, syncs what it missed
+   with the seals on the card and keeps the network's head (its votes
+   counted); every /metrics shows quorum
+   checks on the card, no host fallback and no twin, /readyz is 200,
+   every child exits 0 on SIGTERM and no log holds a traceback or a
+   native-KV fallback; then ``cli.build_node`` in this process, a solo
+   node of all 200 keys, whose 5 blocks each launch exactly what the
+   code says (two aggregate flushes and one single flush a block); it
+   prints each child's seconds to `node up`, seconds a block, the RPC
+   medians, the transfer's seconds, the restart's, and the committed
+   rounds' median split by phase from the span files;
+13. prints a JSON line describing each kernel (with its launches on
+   the main path, the consumers, the signing path, the localnet, the
+   sync phase and the node binary),
    then, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line.  Without CUDA,
@@ -2968,6 +2986,12 @@ def localnet_phase(seed):
     def live():
         start = min(n.chain.head_number for n in nodes)
         goal = start + LOCALNET_LIVE_BLOCKS
+        # the nodes sat idle while the Handel part ran on its own
+        # localnet: restart their round clocks, or a Handel part longer
+        # than the view-change timeout (27 s) opens the live part with a
+        # view change on every node
+        for n in nodes:
+            n._round_start = time.monotonic()
         t0 = time.perf_counter()
         threads = [n.run_forever(block_time=LOCALNET_BLOCK_TIME)
                    for n in nodes]
@@ -4413,6 +4437,620 @@ def serving_phase(seed):
             "captured_kernels": kernels, "seconds": seconds}
 
 
+# -- the node binary ---------------------------------------------------------
+
+BOOT_NODES = 4
+BOOT_KEYS = COMMITTEE  # dev keys: Harmony mainnet's 200 slots
+BOOT_SPAN = BOOT_KEYS // BOOT_NODES  # each process one multi-key validator
+BOOT_BLOCKS = 8  # every node commits at least this many
+BOOT_RESTART_AT = 4  # node 3 gets SIGTERM once every node is here
+BOOT_BLOCK_TIME = 2.0  # the mainnet period
+BOOT_BUDGET_S = 240.0  # the most any wait of part A may take
+BOOT_EXIT_S = 20.0  # a child's SIGTERM-to-exit limit
+BOOT_SOLO_BLOCKS = 5
+BOOT_SOLO_BLOCK_TIME = 1.0
+BOOT_RPC_CALLS = 25
+BOOT_TRANSFER = 4242
+# what one committed block of a solo node holding every key launches:
+# the PREPARED proof (consensus/fbft.py:304) and the insert's seal check
+# (chain/engine.py:340 via core/blockchain.py:591) one aggregate flush
+# each, the leader's own COMMIT vote, signed once by its keys' sum
+# (consensus/fbft.py:152), one single flush; one after another on the
+# consensus thread, so no window merges them
+BOOT_FLUSHES = ("agg", "single", "agg")
+BOOT_BLOCK_LAUNCHES = {k: sum(int(k in FLUSH_LAUNCHES[kind])
+                              for kind in BOOT_FLUSHES) for k in KERNELS}
+
+
+def free_ports(n):
+    """``n`` distinct loopback ports that were free a moment ago."""
+    import socket
+
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            socks.append(s)
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def http_json(port, path, body=None, timeout=30.0):
+    """(status, parsed JSON) of a GET (``body`` None) or a JSON POST."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        if body is None:
+            conn.request("GET", path)
+        else:
+            conn.request("POST", path, json.dumps(body),
+                         {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        try:
+            return resp.status, json.loads(data)
+        except ValueError:
+            return resp.status, data.decode(errors="replace")
+    finally:
+        conn.close()
+
+
+def rpc(port, method, *params):
+    status, out = http_json(port, "/", {"jsonrpc": "2.0", "id": 1,
+                                        "method": method,
+                                        "params": list(params)})
+    check(status == 200 and isinstance(out, dict) and "error" not in out,
+          f"{method}{list(params)} on :{port}: {status} {out}")
+    return out["result"]
+
+
+class BootNode:
+    """One ``python -m harmony_tpu_torch.cli`` process of the boot phase:
+    its ports, config file, datadir and log."""
+
+    def __init__(self, index, work, sink, boot_port, extra=None):
+        self.index = index
+        self.work = work
+        self.sink = sink
+        self.boot_port = boot_port
+        self.rpc, self.metrics, self.p2p, self.sync, self.ws = free_ports(5)
+        self.extra = dict(extra or {})
+        self.datadir = work / f"node{index}"
+        self.proc = None
+        self.runs = 0
+
+    @property
+    def log_path(self):
+        return self.work / f"node{self.index}.{self.runs}.log"
+
+    def spawn(self, sync_peer=None):
+        self.runs += 1
+        conf = self.work / f"node{self.index}.toml"
+        conf.write_text("".join(f"{k} = {v}\n" for k, v in
+                                {"ws_port": self.ws, **self.extra}.items()))
+        cmd = [sys.executable, "-m", "harmony_tpu_torch.cli",
+               "--config", str(conf), "--datadir", str(self.datadir),
+               "--rpc-port", str(self.rpc),
+               "--metrics-port", str(self.metrics),
+               "--p2p-port", str(self.p2p), "--sync-port", str(self.sync),
+               "--bootnode", f"127.0.0.1:{self.boot_port}",
+               "--dev-keys", str(BOOT_KEYS),
+               "--dev-key-index", str(BOOT_SPAN * self.index),
+               "--dev-key-span", str(BOOT_SPAN),
+               "--block-time", str(BOOT_BLOCK_TIME), "--skip-ntp-check",
+               "--trace", "--span-sink-dir", str(self.sink)]
+        if sync_peer is not None:
+            cmd += ["--sync-peer", f"127.0.0.1:{sync_peer}"]
+        self.seen = []
+        self.spawned = time.perf_counter()
+        self.spawned_wall = time.time()
+        self.up_s = None
+        with open(self.log_path, "w") as out:
+            self.proc = subprocess.Popen(
+                cmd, stdout=out, stderr=subprocess.STDOUT,
+                cwd=Path(__file__).resolve().parent)
+        return self
+
+    def text(self):
+        """This run's log so far."""
+        try:
+            return self.log_path.read_text(errors="replace")
+        except OSError:
+            return ""
+
+    def poll_up(self):
+        """True once the ``node up`` line is out; fails if it exited."""
+        if self.up_s is None and "harmony-tpu node up" in self.text():
+            self.up_s = time.perf_counter() - self.spawned
+        check(self.up_s is not None or self.proc.poll() is None,
+              f"node {self.index} exited ({self.proc.returncode}) before "
+              f"it was up:\n{self.text()[-4000:]}")
+        return self.up_s is not None
+
+    def head(self):
+        """The node's head over RPC; each new one's first sighting kept."""
+        head = rpc(self.rpc, "hmyv2_blockNumber")
+        if not self.seen or head > self.seen[-1][1]:
+            self.seen.append((time.perf_counter(), head))
+        return head
+
+    def block_s(self):
+        """Seconds a block over the heads this run saw after its first."""
+        (t0, h0), (t1, h1) = self.seen[0], self.seen[-1]
+        return (t1 - t0) / (h1 - h0) if h1 > h0 else None
+
+    def stop(self):
+        """SIGTERM; its exit code and seconds to exit."""
+        import signal
+
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(BOOT_EXIT_S)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(10)
+            rc = None
+        return rc, time.perf_counter() - t0
+
+
+def wait_for(what, pred, budget=BOOT_BUDGET_S, every=0.2):
+    deadline = time.perf_counter() + budget
+    while True:
+        got = pred()
+        if got:
+            return got
+        if time.perf_counter() >= deadline:
+            raise AssertionError(f"{what}: not within {budget:.0f} s")
+        time.sleep(every)
+
+
+class HeadWatcher:
+    """A WebSocket ``eth_subscribe("newHeads")`` client: every pushed
+    head's (number, hash), on a thread of its own."""
+
+    def __init__(self, port):
+        import base64
+        import socket
+
+        from harmony_tpu_torch.rpc.ws import read_frame, write_frame
+
+        self._read = read_frame
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=30)
+        key = base64.b64encode(b"chip smoke heads").decode()
+        self.sock.sendall(
+            f"GET / HTTP/1.1\r\nHost: 127.0.0.1\r\nUpgrade: websocket\r\n"
+            f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+            f"Sec-WebSocket-Version: 13\r\n\r\n".encode())
+        data = b""
+        while b"\r\n\r\n" not in data:
+            chunk = self.sock.recv(4096)
+            check(chunk, "the WebSocket handshake was cut")
+            data += chunk
+        check(b" 101 " in data.split(b"\r\n")[0],
+              f"the WebSocket handshake: {data[:200]!r}")
+        write_frame(self.sock, json.dumps({
+            "jsonrpc": "2.0", "id": 1, "method": "eth_subscribe",
+            "params": ["newHeads"]}).encode())
+        _, payload = read_frame(self.sock)
+        self.sub = json.loads(payload)["result"]
+        self.heads = []
+        self.errors = []
+        self.sock.settimeout(None)
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        try:
+            while True:
+                op, payload = self._read(self.sock)
+                if op == 0x8:
+                    return
+                note = json.loads(payload)
+                if note.get("params", {}).get("subscription") == self.sub:
+                    head = note["params"]["result"]
+                    self.heads.append((int(head["number"], 16),
+                                       head["hash"]))
+        except (OSError, ValueError) as e:
+            self.errors.append(repr(e))
+
+    def close(self):
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+        self.thread.join(10)
+
+
+def log_events(text, msg):
+    """The JSON log records of one message, in order."""
+    out = []
+    for line in text.splitlines():
+        if f'"msg":"{msg}"' in line:
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                pass
+    return out
+
+
+def metric_values(text, name):
+    """{labels: value} of one family's samples in Prometheus text."""
+    out = {}
+    for line in text.splitlines():
+        m = re.match(rf"^{name}(\{{[^}}]*\}})? (\S+)$", line)
+        if m:
+            out[m.group(1) or ""] = float(m.group(2))
+    return out
+
+
+def boot_localnet(seed, work):
+    """Part A of the boot phase: a bootnode and BOOT_NODES processes of
+    the node binary on one card (see ``boot_phase``)."""
+    import statistics
+
+    from harmony_tpu_torch import obs
+    from harmony_tpu_torch.core import rawdb
+    from harmony_tpu_torch.core.blockchain import Blockchain
+    from harmony_tpu_torch.core.genesis import dev_genesis
+    from harmony_tpu_torch.core.kv_native import NativeKV
+    from harmony_tpu_torch.core.types import Transaction
+
+    genesis, ecdsa_keys, _ = dev_genesis(n_keys=BOOT_KEYS)
+    chain_id = genesis.config.chain_id
+    sink = work / "spans"
+    sink.mkdir()
+    boot_port, = free_ports(1)
+    out = {}
+    with open(work / "bootnode.log", "w") as f:
+        bootnode = subprocess.Popen(
+            [sys.executable, "-m", "harmony_tpu_torch.p2p.discovery",
+             "--port", str(boot_port)], stdout=f, stderr=subprocess.STDOUT,
+            cwd=Path(__file__).resolve().parent)
+    nodes = []
+    watcher = None
+    try:
+        explorer_port, rosetta_port = free_ports(2)
+        apis = {"explorer_port": explorer_port, "rosetta_port": rosetta_port}
+        nodes = [BootNode(i, work, sink, boot_port,
+                          extra=apis if i == 1 else None)
+                 for i in range(BOOT_NODES)]
+        for n in nodes:
+            # every node can pull from a neighbour: one that missed a
+            # round's COMMITTED recovers by the consensus-timeout sync
+            n.spawn(sync_peer=nodes[(n.index + 1) % BOOT_NODES].sync)
+        wait_for("the nodes' `node up` lines",
+                 lambda: all([n.poll_up() for n in nodes]))
+        out["up_s"] = [n.up_s for n in nodes]
+        watcher = HeadWatcher(nodes[2].ws)
+        subscribed_at = nodes[2].head()
+
+        # a transfer signed with a dev-genesis key, in over RPC
+        sender, to = ecdsa_keys[0], b"\x0b" * 20
+        tx = Transaction(nonce=0, gas_price=1, gas_limit=25_000,
+                         shard_id=0, to_shard=0, to=to,
+                         value=BOOT_TRANSFER).sign(sender, chain_id)
+        tx_hash = "0x" + tx.hash(chain_id).hex()
+        before = [int(rpc(n.rpc, "eth_getBalance",
+                          "0x" + sender.address().hex(), "latest"), 16)
+                  for n in nodes]
+        t0 = time.perf_counter()
+        check(rpc(nodes[0].rpc, "hmy_sendRawTransaction",
+                  "0x" + rawdb.encode_tx(tx, chain_id).hex()) == tx_hash,
+              "hmy_sendRawTransaction returned another hash")
+        receipt = wait_for("the transfer's receipt", lambda: rpc(
+            nodes[0].rpc, "eth_getTransactionReceipt", tx_hash))
+        out["receipt_s"] = time.perf_counter() - t0
+        check(receipt["status"] == "0x1", f"the transfer failed: {receipt}")
+        landed = int(receipt["blockNumber"], 16)
+
+        # node 3 stops once every node is at BOOT_RESTART_AT, and comes
+        # back on its datadir, syncing from node 0
+        wait_for(f"every node at block {BOOT_RESTART_AT}", lambda: min(
+            [n.head() for n in nodes]) >= BOOT_RESTART_AT)
+        rc, exit_s = nodes[3].stop()
+        check(rc == 0, f"node 3 exited {rc} on SIGTERM")
+        db = NativeKV(str(nodes[3].datadir / "shard0.db"))
+        try:
+            on_disk = Blockchain(db, genesis, blocks_per_epoch=32768)
+            stopped_at = on_disk.head_number
+            disk_hash = "0x" + on_disk.current_header().hash().hex()
+        finally:
+            db.close()
+        check(stopped_at >= BOOT_RESTART_AT,
+              f"node 3's datadir holds {stopped_at} blocks")
+        check(rpc(nodes[0].rpc, "hmy_getBlockByNumber", hex(stopped_at),
+                  False)["hash"] == disk_hash,
+              f"node 3's block {stopped_at} on disk is not node 0's")
+        nodes[3].spawn(sync_peer=nodes[0].sync)
+        wait_for("the restarted node's `node up` line", nodes[3].poll_up)
+
+        def caught_up():
+            head = nodes[3].head()
+            return head if head >= min(n.head() for n in nodes[:3]) else 0
+        target = wait_for("the restarted node's catch-up", caught_up)
+        out["catch_up_s"] = time.perf_counter() - nodes[3].spawned
+        # the first pass is build_node's, before consensus starts; later
+        # ones are the node's own spin-up syncs while it rejoins
+        start = log_events(nodes[3].text(), "sync start")
+        done = log_events(nodes[3].text(), "sync pass done")
+        check(start and start[0]["head"] == stopped_at,
+              f"the restarted node did not reopen its {stopped_at} blocks "
+              f"and sync: {start}")
+        check(done and done[0]["errors"] == 0 and done[0]["inserted"] > 0,
+              f"the restarted node's sync pass: {done}")
+        out["reopen_s"] = start[0]["ts"] - nodes[3].spawned_wall
+        out["sync_s"] = done[0]["ts"] - start[0]["ts"]
+        out["synced"] = done[0]["inserted"]
+        out["restart"] = {"stopped_at": stopped_at, "exit_s": exit_s,
+                          "target": target, "up_s": nodes[3].up_s,
+                          "passes": len(start)}
+
+        # and stays at the network's head while every node commits two
+        # more blocks (by its own spin-up syncs where it missed a round's
+        # ANNOUNCE; its votes are counted, not required)
+        wait_for(f"every node at block {BOOT_BLOCKS}", lambda: min(
+            [n.head() for n in nodes]) >= max(BOOT_BLOCKS, target + 2))
+        out["block_s"] = [n.block_s() for n in nodes]
+        out["restart"]["votes"] = len(log_events(nodes[3].text(),
+                                                 "prepare vote sent"))
+        heights = min(n.head() for n in nodes)
+        for num in range(1, heights + 1):
+            hashes = {rpc(n.rpc, "hmy_getBlockByNumber", hex(num),
+                          False)["hash"] for n in nodes}
+            check(len(hashes) == 1, f"the nodes differ at block {num}: "
+                  f"{hashes}")
+        out["heights"] = heights
+        after = [(int(rpc(n.rpc, "eth_getBalance",
+                          "0x" + sender.address().hex(), "latest"), 16),
+                  int(rpc(n.rpc, "eth_getBalance", "0x" + to.hex(),
+                          "latest"), 16)) for n in nodes]
+        gas = int(receipt["gasUsed"], 16)
+        check(len(set(after)) == 1 and len(set(before)) == 1
+              and after[0] == (before[0] - BOOT_TRANSFER - gas,
+                               BOOT_TRANSFER),
+              f"balances before {before}, after {after}, gas {gas}")
+
+        # the pushes cover every head from the subscription on
+        top = nodes[2].head()
+        wait_for("the WebSocket's pushes", lambda: any(
+            num >= top for num, _ in watcher.heads), budget=30)
+        pushed = [num for num, _ in watcher.heads]
+        check(not watcher.errors and pushed == list(range(
+            pushed[0], pushed[-1] + 1)) and pushed[0] <= subscribed_at + 1,
+              f"newHeads pushed {pushed} from head {subscribed_at} "
+              f"({watcher.errors})")
+        for num, h in watcher.heads[:3] + watcher.heads[-3:]:
+            check(rpc(nodes[2].rpc, "hmy_getBlockByNumber", hex(num),
+                      False)["hash"] == h, f"newHeads pushed block {num} "
+                  f"with another hash")
+        out["pushed"] = len(pushed)
+
+        # the explorer and Rosetta on node 1 agree with its RPC
+        def same_head():
+            h_rpc = nodes[1].head()
+            _, ex = http_json(explorer_port, "/height")
+            _, ro = http_json(rosetta_port, "/network/status", {})
+            h_ro = ro["current_block_identifier"]["index"]
+            return (h_rpc, ro) if h_rpc == ex["height"] == h_ro else None
+        h, ro = wait_for("the explorer's, Rosetta's and RPC's heads",
+                         same_head, budget=30, every=0.05)
+        _, ex_blocks = http_json(explorer_port, f"/blocks?from={h}&to={h}")
+        _, ro_block = http_json(rosetta_port, "/block",
+                                {"block_identifier": {"index": h}})
+        want = rpc(nodes[1].rpc, "hmy_getBlockByNumber", hex(h),
+                   False)["hash"]
+        check(ex_blocks[0]["hash"] == ro["current_block_identifier"]["hash"]
+              == ro_block["block"]["block_identifier"]["hash"] == want,
+              f"the explorer's and Rosetta's block {h} is not RPC's")
+
+        # RPC latency on a validator
+        def median_rpc(method, *params):
+            times = []
+            for _ in range(BOOT_RPC_CALLS):
+                t0 = time.perf_counter()
+                rpc(nodes[1].rpc, method, *params)
+                times.append(1e3 * (time.perf_counter() - t0))
+            return statistics.median(times)
+        out["rpc_ms"] = {
+            "hmyv2_blockNumber": median_rpc("hmyv2_blockNumber"),
+            "hmy_getBlockByNumber": median_rpc("hmy_getBlockByNumber",
+                                               hex(landed), True),
+            "eth_getBalance": median_rpc("eth_getBalance",
+                                         "0x" + to.hex(), "latest")}
+
+        # each node's metrics and readiness
+        for n in nodes:
+            status, text = http_json(n.metrics, "/metrics")
+            checks = metric_values(text, "harmony_device_checks_total")
+            quorum = (checks.get('{kind="agg_verify"}', 0)
+                      + checks.get('{kind="batch_verify"}', 0))
+            check(status == 200 and quorum > 0, f"node {n.index} made "
+                  f"{quorum} quorum checks on the card: {checks}")
+            check(checks.get('{kind="ref_fallback"}') == 0,
+                  f"node {n.index}: host fallbacks {checks}")
+            check(metric_values(text, "harmony_device_kernel_twin")
+                  == {"": 0}, f"node {n.index} ran the kernel twins")
+            check("harmony_round_phase_seconds_bucket" in text,
+                  f"node {n.index} renders no harmony_round_phase_seconds")
+            status, _ = http_json(n.metrics, "/readyz")
+            check(status == 200, f"node {n.index}'s /readyz is {status}")
+    finally:
+        if watcher is not None:
+            watcher.close()
+        codes = []
+        for n in nodes:
+            if n.proc is not None and n.proc.poll() is None:
+                codes.append((n.index, *n.stop()))
+            elif n.proc is not None:
+                codes.append((n.index, n.proc.returncode, 0.0))
+        import signal
+
+        bootnode.send_signal(signal.SIGTERM)
+        try:
+            boot_rc = bootnode.wait(BOOT_EXIT_S)
+        except subprocess.TimeoutExpired:
+            bootnode.kill()
+            boot_rc = bootnode.wait(10)
+    check(all(rc == 0 for _, rc, _ in codes) and boot_rc == 0,
+          f"exit codes on SIGTERM (node, rc, s): {codes}, bootnode "
+          f"{boot_rc}")
+    out["exit_s"] = [s for _, _, s in codes]
+    for log_path in sorted(work.glob("*.log")):
+        text = log_path.read_text(errors="replace")
+        check("Traceback" not in text and "native kv unavailable"
+              not in text, f"{log_path.name}:\n{text[-4000:]}")
+    spans = obs.read_spans(sorted(str(p) for p in sink.glob("*.jsonl*")))
+    timelines = obs.build_timelines(spans)
+    check(timelines, f"no committed round in {len(spans)} spans")
+    out["rounds"] = len(timelines)
+    out["phase_ms"] = {p: 1e3 * statistics.median(
+        tl.phases.get(p, 0.0) for tl in timelines) for p in obs.PHASES}
+    out["round_ms"] = 1e3 * statistics.median(tl.wall_s for tl in timelines)
+    return out
+
+
+def boot_solo(work):
+    """Part B of the boot phase: ``cli.build_node`` in this process, one
+    solo node holding all BOOT_KEYS dev keys on its native-KV datadir,
+    its services started; BOOT_SOLO_BLOCKS committed blocks, each held
+    to BOOT_BLOCK_LAUNCHES, its flushes to BOOT_FLUSHES."""
+    from harmony_tpu_torch import cli, sched
+    from harmony_tpu_torch.core.kv_native import NativeKV
+    from harmony_tpu_torch.sched.scheduler import SHED
+
+    sheds = SHED.total()  # the serving phase's, made on purpose
+    s, flushes = counted_scheduler()
+    cfg = cli.load_config(None, {"dev_keys": BOOT_KEYS})
+    cfg.update(datadir=str(work / "solo"), rpc_port=0, metrics_port=0,
+               p2p_port=0, sync_port=0, block_time=BOOT_SOLO_BLOCK_TIME)
+    reset_launches()
+    node, manager, _, rpc_srv, _ = cli.build_node(cfg)
+    check(isinstance(node.chain.db, NativeKV),
+          f"the solo node's chain is on {type(node.chain.db).__name__}")
+    blocks = []
+    insert = node.chain.insert_chain
+    mark = [launches(), 0]
+
+    def counted_insert(*args, **kwargs):
+        head = node.chain.head_number
+        done = insert(*args, **kwargs)
+        if node.chain.head_number > head:
+            blocks.append((node.chain.head_number, since(mark[0]),
+                           [kind for kind, _, _ in flushes[mark[1]:]]))
+            mark[:] = [launches(), len(flushes)]
+        return done
+    node.chain.insert_chain = counted_insert
+    t0 = time.perf_counter()
+    manager.start_services()
+    try:
+        wait_for(f"the solo node's {BOOT_SOLO_BLOCKS} blocks",
+                 lambda: len(blocks) >= BOOT_SOLO_BLOCKS, budget=120)
+        seconds = time.perf_counter() - t0
+        check(rpc(rpc_srv.port, "hmyv2_blockNumber") >= BOOT_SOLO_BLOCKS,
+              "the solo node's RPC is behind its chain")
+    finally:
+        manager.stop_services()
+        node.chain.db.close()
+        sched.reset()
+    total = {k: 0 for k in KERNELS}
+    for num, made, kinds in blocks[:BOOT_SOLO_BLOCKS]:
+        check(made == BOOT_BLOCK_LAUNCHES and tuple(kinds) == BOOT_FLUSHES,
+              f"solo block {num} launched {made} in flushes {kinds}")
+        for k, n in made.items():
+            total[k] += n
+    check_flushes(flushes, "the solo node")
+    node_clean("the solo node", sheds=sheds)
+    return {"launches": total, "seconds": seconds,
+            "blocks": len(blocks)}
+
+
+def boot_phase(seed):
+    """The node binary (``python -m harmony_tpu_torch.cli``) on the card.
+
+    Part A: a bootnode and BOOT_NODES processes of the binary, each
+    holding BOOT_SPAN of BOOT_KEYS dev keys (Harmony's 200 slots), each
+    on its own native-KV datadir (fsync "batch"), tracing into one span
+    sink directory, all on this one card; every node commits BOOT_BLOCKS
+    blocks with the same hash at every height; a dev-genesis transfer
+    in over hmy_sendRawTransaction lands with the same balances on every
+    node; node 2's WebSocket newHeads pushes every head, node 1's explorer
+    and Rosetta agree with its RPC; node 3 stops on SIGTERM at block
+    BOOT_RESTART_AT and comes back on its datadir with a sync peer, syncs
+    the blocks it missed (their seals on the card) and keeps the network's
+    head; every
+    node's /metrics shows quorum checks on the card, no host fallback, no
+    twin and the round-phase family, /readyz 200; every child exits 0 on
+    SIGTERM, no log holds a traceback or a native-KV fallback.  Part B:
+    the same wiring in this process (``boot_solo``), at exact launches.
+    Prints each child's seconds to `node up`, seconds a block, the RPC
+    medians, the transfer's seconds to its receipt, the restart's, and
+    the committed rounds' median split by phase from the span files."""
+    import shutil
+    import tempfile
+
+    from harmony_tpu_torch import device as D
+    from harmony_tpu_torch.core import kv_native
+
+    check(D._FORCED is None and D.device_enabled(),
+          "device_enabled() is not True by AUTO on the card")
+    t0 = time.perf_counter()
+    kv_native.build_native()
+    check(kv_native.available(), "the native KV store did not load")
+    log(f"built {kv_native.library_path().name} from "
+        f"{kv_native.SOURCE.name} (g++) in {time.perf_counter() - t0:.3f} s")
+    card = card_line()
+    started = time.perf_counter()
+    keep = Path(__file__).resolve().parent / "boot_phase_logs"
+    with tempfile.TemporaryDirectory(prefix="boot_phase_") as tmp:
+        work = Path(tmp)
+        try:
+            net = boot_localnet(seed, work)
+        finally:
+            shutil.rmtree(keep, ignore_errors=True)
+            keep.mkdir(parents=True, exist_ok=True)
+            for path in work.glob("*.log"):
+                shutil.copy(path, keep / path.name)
+        net_s = time.perf_counter() - started
+        solo = boot_solo(work)
+    phases = ", ".join(f"{p} {ms:.3f}" for p, ms in net["phase_ms"].items())
+    log(f"[{card}] boot: {BOOT_NODES} node processes of {BOOT_SPAN} keys "
+        f"({BOOT_KEYS} slots) up in "
+        + ", ".join(f"{s:.3f}" for s in net["up_s"])
+        + " s from spawn; seconds a block "
+        + ", ".join("n/a" if s is None else f"{s:.3f}"
+                    for s in net["block_s"])
+        + " (node 3's after its restart); every node at "
+        f"{net['heights']} blocks, one hash at each; the transfer's "
+        f"receipt in {net['receipt_s']:.3f} s; medians of "
+        f"{BOOT_RPC_CALLS} calls "
+        + ", ".join(f"{m} {ms:.3f} ms" for m, ms in net["rpc_ms"].items())
+        + f"; newHeads pushed {net['pushed']} heads")
+    r = net["restart"]
+    log(f"[{card}] boot: node 3 stopped at block {r['stopped_at']} "
+        f"(exit in {r['exit_s']:.3f} s); after its respawn it had reopened "
+        f"its datadir and began to sync at {net['reopen_s']:.3f} s, synced "
+        f"{net['synced']} blocks in {net['sync_s']:.3f} s, was up at "
+        f"{r['up_s']:.3f} s and at the network's head ({r['target']}) at "
+        f"{net['catch_up_s']:.3f} s ({r['passes']} sync passes in all, "
+        f"{r['votes']} prepare votes sent); "
+        f"SIGTERM to exit "
+        + ", ".join(f"{s:.3f}" for s in net["exit_s"]) + " s")
+    log(f"[{card}] boot: {net['rounds']} committed rounds over the "
+        f"{BOOT_NODES} nodes' span files, median {net['round_ms']:.3f} ms "
+        f"a round, by phase (ms): {phases}")
+    log(f"[{card}] boot: solo build_node of {BOOT_KEYS} keys, "
+        f"{BOOT_SOLO_BLOCKS} blocks at {BOOT_BLOCK_LAUNCHES} launches each "
+        f"({solo['seconds']:.3f} s); the phase took "
+        f"{time.perf_counter() - started:.3f} s (part A {net_s:.3f} s)")
+    return {"launches": solo["launches"], "localnet": net, "solo": solo}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1673)
@@ -4518,6 +5156,9 @@ def main(argv=None):
     # the serving surface: warmup in a fresh process, the governor, the
     # metrics server, prof.capture
     serving_phase(args.seed)
+    # the node binary: four processes on this card, then its wiring in
+    # this process at exact launches, its counts from zero
+    boot = boot_phase(args.seed)
 
     def entry(name, source, replaces, op, shape, described, kept,
               counted=path):
@@ -4532,6 +5173,7 @@ def main(argv=None):
             "node_launches": localnet["launches"][name],
             "sync_launches": sync["launches"][name],
             "signing_launches": signing["launches"][name],
+            "boot_launches": boot["launches"][name],
             "max_abs_err": stats[name]["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

@@ -8,8 +8,9 @@ stdlib only: the primitives (``LockedCounters``, ``Counter``, ``Gauge``,
 
 ``Registry.expose`` renders the families of the modules the port has:
 device, resilience, sched, p2p, slash, process, health, governor, prof,
-aot and snapshot.  The JAX package's netem and obs families come with
-the chaos harness and ``obs/{sink,timeline}.py``, which the port does
+aot, snapshot and, once ``obs`` is imported, the round-phase and
+replay-stage histograms of ``obs/{timeline,replay}.py``.  The JAX
+package's netem family comes with the chaos harness, which the port does
 not have yet.
 """
 
@@ -309,7 +310,22 @@ class Registry:
             lines.append(prof)
         lines.append(self._aot_counters())
         lines.append(self._snapshot_counters())
+        obs = self._obs_counters(exemplars)
+        if obs:
+            lines.append(obs)
         return "\n".join(lines) + "\n"
+
+    @staticmethod
+    def _obs_counters(exemplars: bool = False) -> str:
+        """Round-forensics families (obs module singletons) — only
+        when the obs package was ever imported (it always is on a full
+        node via the chain insert path; pure-metrics tests stay lean)."""
+        import sys
+
+        mod = sys.modules.get("harmony_tpu_torch.obs")
+        if mod is None:
+            return ""
+        return mod.expose_metrics(exemplars=exemplars)
 
     @staticmethod
     def _process_gauges() -> str:

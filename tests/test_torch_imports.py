@@ -62,7 +62,10 @@ NODE_LAYER = (
     "accounts.bech32", "accounts.hd", "config.genesis_accounts",
     "ref.herumi", "chain.crosslink", "staking.availability",
     "chain.finalize", "webhooks", "core.epochchain", "p2p.stream",
-    "sync", "sync.epoch_feed", "sync.staged",
+    "sync", "sync.epoch_feed", "sync.staged", "core.kv_native",
+    "keystore", "blsgen_kms", "ntp", "p2p.discovery", "obs.sink",
+    "obs.timeline", "hmy", "hmy.facade", "rpc", "rpc.server", "rpc.ws",
+    "explorer", "rosetta", "cli",
 )
 
 
@@ -105,10 +108,7 @@ def _source(package: str, module: str) -> Path:
 
 @pytest.mark.parametrize("module", NODE_LAYER)
 def test_node_layer_mirrors_the_jax_packages_names(module):
-    """Each copy keeps the JAX module's top-level public names (obs/ keeps
-    those of replay.py, the part ported)."""
+    """Each copy keeps the JAX module's top-level public names."""
     port = _public(_source("harmony_tpu_torch", module))
     want = _public(_source("harmony_tpu", module))
-    if module == "obs":
-        want &= _public(_source("harmony_tpu", "obs.replay"))
     assert want <= port, sorted(want - port)

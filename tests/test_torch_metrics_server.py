@@ -123,11 +123,11 @@ def test_probes_answer_as_the_jax_packages_server():
 
 def test_the_servers_routes():
     """/metrics carries the port's families (p2p, slash and snapshot
-    among them; netem and the round timeline's wait for their modules);
-    /debug/pprof/* and
+    among them, and the round timeline's once obs is imported; netem
+    waits for its module); /debug/pprof/* and
     /debug/trace answer; an unknown route is a 404; stopping a server
     that never started is a no-op."""
-    from harmony_tpu_torch import aot, sched  # noqa: F401 — their families
+    from harmony_tpu_torch import aot, obs, sched  # noqa: F401 — families
 
     T_HL.configure(enabled=False)
     T_HL.register("pump", critical=True)
@@ -155,10 +155,11 @@ def test_the_servers_routes():
                        "harmony_p2p_invalid_messages_total",
                        "harmony_slash_events_total",
                        "harmony_snapshot_bootstrap_total",
+                       "harmony_round_phase_seconds",
+                       "harmony_replay_stage_seconds",
                        "harmony_test_total 2"):
             assert family in text, family
-        for family in ("harmony_netem_", "harmony_round_phase_seconds"):
-            assert family not in text
+        assert "harmony_netem_" not in text
         status, body = _get(srv.port, "/debug/pprof/threadz")
         assert status == 200 and b"MainThread" in body
         status, body = _get(srv.port, "/debug/pprof/")
@@ -186,10 +187,14 @@ def _family_shape(text):
 
 
 @pytest.mark.parametrize("family", ("_p2p_counters", "_slash_counters",
-                                    "_snapshot_counters"))
+                                    "_snapshot_counters", "_obs_counters"))
 def test_registry_families_equal_the_jax_packages(family):
-    """The p2p, slash and snapshot families render with the JAX package's
-    names, help, types and fixed label sets, and /metrics carries them."""
+    """The p2p, slash, snapshot and obs (round phases, replay stages)
+    families render with the JAX package's names, help, types and fixed
+    label sets, and /metrics carries them."""
+    import harmony_tpu.obs  # noqa: F401 — the obs families render once
+    import harmony_tpu_torch.obs  # noqa: F401 — their packages are loaded
+
     got = getattr(T_MT.Registry, family)()
     assert _family_shape(got) == _family_shape(getattr(J_MT.Registry,
                                                        family)())

@@ -2,7 +2,8 @@
 package's: a port of the protocol and live-server tests of
 tests/test_sidecar.py, with test_engine_routes_checks_through_sidecar, and
 one wire-compatibility case, the JAX package's client against the port's
-server.  (The native C++ client's test builds ``native/`` and waits.)
+server.  (The native C++ client's test is
+``tests/test_torch_sidecar_native.py``.)
 
 The port's server answers on each of its routes: the device path forced
 on the CPU through the bigint twins (``HARMONY_KERNEL_TWIN=1``) through
