@@ -75,8 +75,7 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    its commit proof on the card: three rounds by a manual pump (an empty
    block, a transfer, a create-validator whose proof of possession the
    pool checks on INGRESS, a forged copy refused), one view change whose
-   NEWVIEW carries the PREPARED proof, one round through the Handel
-   overlay (merged partials, none forged), and run_forever threads
+   NEWVIEW carries the PREPARED proof, and run_forever threads
    until 5 more blocks commit within 120 s; then a behind Node with no
    keys, whose registry Downloader syncs over a SyncServer of node 0's
    chain, every seal checked on the card: a run of future-round gossip
@@ -150,9 +149,22 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    prints each child's seconds to `node up`, seconds a block, the RPC
    medians, the transfer's seconds, the restart's, and the committed
    rounds' median split by phase from the span files;
-13. prints a JSON line describing each kernel (with its launches on
+13. runs three of the JAX package's adversarial scenarios through the
+   port's chaostest on the card with the real kernels (chaos_phase,
+   HARMONY_CHAOS_REAL_KERNELS=1, each in its quick form):
+   view_change_storm (the leader black-holed under an ingress flood),
+   byz_double_voter_slashed (a staked validator double-votes and is
+   slashed) and wan_committee_200 (200 slots under a WAN matrix and the
+   Handel overlay); each must pass with no host fallback, no consensus
+   shed, no shed for an open breaker, no message dropped for a
+   DeviceError and no twin answer, and every launch must belong to a
+   scheduler flush or a masked_pubkey_sum held to its exact launches; it
+   prints each scenario's seconds, heads, round p50 and p99, view
+   changes, round phases, units of device work and launches (violation
+   dumps in chaos_phase_dumps/);
+14. prints a JSON line describing each kernel (with its launches on
    the main path, the consumers, the signing path, the localnet, the
-   sync phase and the node binary),
+   sync phase, the node binary and the chaos phase),
    then, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line.  Without CUDA,
@@ -2692,10 +2704,11 @@ def localnet_phase(seed):
     commit proof on CONSENSUS.  Three rounds by a manual pump (an empty
     block, a transfer, a create-validator whose proof of possession the
     pool checks on INGRESS; a forged copy refused), one view change whose
-    NEWVIEW carries the PREPARED proof, one round through the Handel
-    overlay, and live rounds on run_forever threads.  Launch counts start
-    from zero; every flush is held to its exact launches; node_clean and
-    no dropped message after every part."""
+    NEWVIEW carries the PREPARED proof, and live rounds on run_forever
+    threads (the Handel overlay's round at 200 slots is the chaos phase's
+    wan_committee_200).  Launch counts start from zero; every flush is
+    held to its exact launches; node_clean and no dropped message after
+    every part."""
     import statistics
 
     from harmony_tpu_torch import bls as B
@@ -2767,7 +2780,7 @@ def localnet_phase(seed):
     parts, nets = {}, []
     to = b"\x0a" * 20
 
-    def localnet(aggregation=None):
+    def localnet():
         net = InProcessNetwork()
         nodes = []
         for i in range(NODES):
@@ -2783,8 +2796,6 @@ def localnet_phase(seed):
             reg = Registry(blockchain=chain,
                            txpool=TxPool(chain_id, 0, chain.state),
                            host=net.host(f"node{i}"))
-            if aggregation is not None:
-                reg.set("aggregation", aggregation)
             nodes.append(Node(reg, MB.PrivateKeys.from_keys(
                 keys[i * KEYS_PER_NODE:(i + 1) * KEYS_PER_NODE])))
         check(all(n.chain.engine is not None and n.chain.engine.device
@@ -2895,6 +2906,13 @@ def localnet_phase(seed):
     def view_change():
         leader = leader_of(nodes)
         validators = [n for n in nodes if n is not leader]
+        # the retrying sender's re-publishes off in this manual pump, as
+        # in the pumped tests: each copy of a VIEWCHANGE or NEWVIEW cost a
+        # sender check on every node (1,128-1,290 of the part's flushes,
+        # 35-53 s); the chaos phase's view_change_storm runs a view change
+        # with them on, on run_forever threads
+        for n in nodes:
+            n.sender.RETRY_INTERVAL = n.sender.SLOW_INTERVAL = 3600.0
         wire = []
         for n in validators:
             publish = n.host.publish
@@ -2950,35 +2968,9 @@ def localnet_phase(seed):
         leader._new_round()  # as the node's own sync rejoin does
         pump(nodes)  # the votes it held for block 4 are stale now
         agreed(nodes, 4, "the old leader's rejoin")
+        for n in nodes:
+            del n.sender.RETRY_INTERVAL, n.sender.SLOW_INTERVAL
     part("view change", view_change)
-
-    # one round through the Handel overlay, on a localnet of its own
-    handel_out = {}
-
-    def handel():
-        hnodes, _ = localnet("handel")
-        check(all(n.aggregator is not None for n in hnodes),
-              "a node has no aggregator")
-        t0 = time.perf_counter()
-        leader_of(hnodes).start_round_if_leader()
-        deadline = time.monotonic() + 60.0
-        while time.monotonic() < deadline and any(
-                n.chain.head_number < 1 for n in hnodes):
-            busy = any([n.process_pending() for n in hnodes])
-            now = time.monotonic()
-            for n in hnodes:
-                n._aggregation_tick(now)
-            if not busy:
-                time.sleep(0.005)
-        handel_out["s"] = time.perf_counter() - t0
-        agreed(hnodes, 1, "the Handel round")
-        stats = [n.aggregation_stats() for n in hnodes]
-        handel_out["stats"] = {k: sum(st[k] for st in stats)
-                               for k in stats[0]}
-        check(handel_out["stats"]["merged"] > 0
-              and handel_out["stats"]["forged"] == 0,
-              f"Handel: {handel_out['stats']}")
-    part("Handel round", handel)
 
     # live: run_forever threads until LOCALNET_LIVE_BLOCKS more commit
     live_out = {}
@@ -2986,10 +2978,9 @@ def localnet_phase(seed):
     def live():
         start = min(n.chain.head_number for n in nodes)
         goal = start + LOCALNET_LIVE_BLOCKS
-        # the nodes sat idle while the Handel part ran on its own
-        # localnet: restart their round clocks, or a Handel part longer
-        # than the view-change timeout (27 s) opens the live part with a
-        # view change on every node
+        # the nodes sat idle between the manual parts: restart their
+        # round clocks, or a pause longer than the view-change timeout
+        # (27 s) opens the live part with a view change on every node
         for n in nodes:
             n._round_start = time.monotonic()
         t0 = time.perf_counter()
@@ -3108,8 +3099,7 @@ def localnet_phase(seed):
         f"({committee_size} slots), each chain's seal checked on insert: "
         "manual rounds " + ", ".join(f"{t:.3f}" for t in round_s) +
         f" s (empty, transfer, create-validator); the view change and its "
-        f"round {vc_out['s']:.3f} s; the Handel round {handel_out['s']:.3f} "
-        f"s ({handel_out['stats']}); live {live_out['blocks']} blocks in "
+        f"round {vc_out['s']:.3f} s; live {live_out['blocks']} blocks in "
         f"{live_out['s']:.3f} s ({live_out['s'] / live_out['blocks']:.3f} s "
         f"a block, block time {LOCALNET_BLOCK_TIME} s; views "
         f"{live_out['views']}); a behind node synced {behind_out['blocks']}"
@@ -5051,6 +5041,263 @@ def boot_phase(seed):
     return {"launches": solo["launches"], "localnet": net, "solo": solo}
 
 
+# the JAX package's adversarial scenarios, each in its quick form (the
+# scenarios' own cut of their windows and floors), on the card
+CHAOS_SCENARIOS = ("view_change_storm", "byz_double_voter_slashed",
+                   "wan_committee_200")
+SHED_REASONS = ("breaker_open", "queue_full", "deadline", "expired",
+                "governor")
+
+
+def chaos_want(kind, n):
+    """The launches of one unit of device work in the chaos runs, by the
+    code's lines.  A flush of ``n`` aggregate checks against one table
+    (sched/scheduler.py ``_run_agg``): a lone one through
+    agg_verify_hashed_on_device, one launch of each quorum kernel; more
+    through agg_verify_batch_on_device, which dispatches one chunk per
+    BATCH_BUCKETS_GPU[-1] (256) lanes, one launch of each quorum kernel a
+    chunk (device.py agg_verify_batch_on_device).  A flush of ``n`` single
+    checks (``_run_single``): verify_many_on_device, the same chunks, one
+    launch each of miller_loop, fp12_mul and final_exp a chunk.  A check
+    that found no scheduler running (``_run_inline``) is one of either,
+    n = 1.  A masked_pubkey_sum (Mask.aggregate_public on the NEWVIEW
+    path): one g1_masked_sum (its affine form in the same launch)."""
+    from harmony_tpu_torch import device as D
+
+    if kind == "sum":
+        return {k: int(k == "g1_masked_sum") for k in KERNELS}
+    chunks = -(-n // D.BATCH_BUCKETS_GPU[-1])
+    return {k: chunks * int(k in FLUSH_LAUNCHES[kind]) for k in KERNELS}
+
+
+@contextlib.contextmanager
+def chaos_accounting():
+    """For the length of the block, every unit of device work the chaos
+    runs make is recorded with the launches it made: each scheduler flush
+    (``_run_agg``, ``_run_single``, and ``_run_inline`` for a check that
+    found no scheduler running), hooked on the class, since the runner
+    builds its own scheduler (``sched.reset()``, ``sched.configure(...)``,
+    runner.py), and each ``device.masked_pubkey_sum``.  One lock runs the
+    units one at a time, so each unit's launch delta is its own: the pump
+    threads' masked sums would otherwise land inside a flush's.  Also
+    recorded: each twin answer (``device.kernel_twin_active`` True) and
+    each consensus message a node dropped for a DeviceError.  Yields
+    {"units": [(kind, n, device type, launches)], "unit_s": [(kind, wall
+    s of the unit, lock wait included)], "twin": [...],
+    "device_drops": [...]}."""
+    from harmony_tpu_torch import device as D
+    from harmony_tpu_torch.node.node import Node
+    from harmony_tpu_torch.sched.scheduler import VerifyScheduler
+
+    lock = threading.Lock()
+    rec = {"units": [], "unit_s": [], "twin": [], "device_drops": []}
+
+    def flush_hook(attr):
+        run = getattr(VerifyScheduler, attr)
+
+        def counted(self, arg):
+            if attr == "_run_inline":
+                kind, n = arg.kind, 1
+            else:
+                kind, n = ("agg" if attr == "_run_agg" else "single"), len(arg)
+            t0 = time.perf_counter()
+            with lock:
+                before = launches()
+                try:
+                    return run(self, arg)
+                finally:
+                    rec["units"].append((kind, n, self.device().type,
+                                         since(before)))
+                    rec["unit_s"].append((kind, time.perf_counter() - t0))
+        return run, counted
+
+    masked_sum, twin_active = D.masked_pubkey_sum, D.kernel_twin_active
+    handle = Node._handle_verified
+
+    def summed(*args, **kwargs):
+        t0 = time.perf_counter()
+        with lock:
+            before = launches()
+            try:
+                return masked_sum(*args, **kwargs)
+            finally:
+                rec["units"].append(("sum", 1, D.resolve_device(
+                    kwargs.get("device")).type, since(before)))
+                rec["unit_s"].append(("sum", time.perf_counter() - t0))
+
+    def twin(device=None):
+        on = twin_active(device)
+        if on:
+            rec["twin"].append(str(device))
+        return on
+
+    def handled(self, msg):
+        try:
+            return handle(self, msg)
+        except D.DeviceError as e:
+            rec["device_drops"].append((self.host.name, str(e)))
+            raise
+
+    hooks = {attr: flush_hook(attr)
+             for attr in ("_run_agg", "_run_single", "_run_inline")}
+    for attr, (_, counted) in hooks.items():
+        setattr(VerifyScheduler, attr, counted)
+    D.masked_pubkey_sum, D.kernel_twin_active = summed, twin
+    Node._handle_verified = handled
+    try:
+        yield rec
+    finally:
+        for attr, (run, _) in hooks.items():
+            setattr(VerifyScheduler, attr, run)
+        D.masked_pubkey_sum, D.kernel_twin_active = masked_sum, twin_active
+        Node._handle_verified = handle
+
+
+def chaos_scenario(name, card, dumps):
+    """One scenario of CHAOS_SCENARIOS (quick) through the port's
+    chaostest.run on the card, its launch counts from zero, held to its
+    gates; returns its launches by kernel."""
+    from harmony_tpu_torch import device as D
+    from harmony_tpu_torch.chaostest import run
+    from harmony_tpu_torch.chaostest.scenarios import SCENARIOS
+    from harmony_tpu_torch.sched import Lane
+    from harmony_tpu_torch.sched.scheduler import LANE_NAMES, SHED
+
+    def sheds():
+        return {(LANE_NAMES[ln], why): SHED.value(lane=LANE_NAMES[ln],
+                                                  reason=why)
+                for ln in Lane for why in SHED_REASONS}
+
+    scenario = SCENARIOS[name](quick=True)
+    sheds0, sums0 = sheds(), D.COUNTERS["masked_pubkey_sum"]
+    reset_launches()
+    t0 = time.perf_counter()
+    with chaos_accounting() as rec:
+        result = run(scenario)
+    wall = time.perf_counter() - t0
+    made = launches()
+    shed = {k: n - sheds0[k] for k, n in sheds().items() if n > sheds0[k]}
+    m = {k: v["value"] for k, v in result.metrics.items()}
+    if not result.passed:
+        log(f"chaos, {name}: violations {result.violations}; dumps: "
+            + (", ".join(result.violation_dumps) or "none written")
+            + f" (under {dumps})")
+    check(result.passed and not result.violations,
+          f"chaos, {name}: {len(result.violations)} violations: "
+          f"{[v['invariant'] for v in result.violations]}")
+    check(D.COUNTERS["ref_fallback"] == 0,
+          f"chaos, {name}: {D.COUNTERS['ref_fallback']} checks fell back to "
+          "the host path")
+    check(D.BREAKER.state == "closed",
+          f"chaos, {name}: the device breaker is {D.BREAKER.state}")
+    check(m["consensus_sheds"] == 0 and not any(
+        lane == "consensus" for lane, _ in shed),
+        f"chaos, {name}: consensus sheds {shed}")
+    check(not any(why == "breaker_open" for _, why in shed),
+          f"chaos, {name}: sheds for an open breaker {shed}")
+    check(not rec["device_drops"], f"chaos, {name}: messages dropped for a "
+          f"DeviceError: {rec['device_drops'][:4]}")
+    check(not rec["twin"] and not D.kernel_twin_active(),
+          f"chaos, {name}: {len(rec['twin'])} twin answers")
+    for k in PATH_KERNELS:
+        check(made[k] > 0, f"chaos, {name}: {k} was never launched")
+    # every launch belongs to a unit of device work, each unit's launches
+    # are exactly its kind's (chaos_want), and the phase's delta is their
+    # sum: the flushes plus one g1_masked_sum per masked_pubkey_sum
+    units = rec["units"]
+    wrong = [(kind, n, dev, got) for kind, n, dev, got in units
+             if dev != "cuda" or got != chaos_want(kind, n)]
+    check(not wrong, f"chaos, {name}: {len(wrong)} of {len(units)} units "
+          f"off the card or off their launches, e.g. {wrong[:3]}")
+    sums = sum(1 for kind, _, _, _ in units if kind == "sum")
+    check(sums == D.COUNTERS["masked_pubkey_sum"] - sums0,
+          f"chaos, {name}: {sums} masked sums hooked, "
+          f"{D.COUNTERS['masked_pubkey_sum'] - sums0} counted")
+    total = {k: sum(got[k] for _, _, _, got in units) for k in KERNELS}
+    check(made == total, f"chaos, {name}: launched {made}, its units "
+          f"account for {total}")
+    flushes = collections.Counter(kind for kind, _, _, _ in units)
+    checks = collections.Counter()
+    for kind, n, _, _ in units:
+        checks[kind] += n
+    inbound = m.get("leader_inbound_msgs_per_round")
+    unit_s = {k: sorted(t for kind, t in rec["unit_s"] if kind == k)
+              for k in flushes}
+    log(f"[{card}] chaos, {name} (quick, seed {scenario.seed}): passed in "
+        f"{wall:.3f} s (run_s {m['run_s']} of its {scenario.window_s} s "
+        f"window); heads {result.heads} (blocks_min {m['blocks_min']}, "
+        f"floor {scenario.invariants.min_blocks}); rounds p50 "
+        f"{m['round_p50_s']} s, p99 {m['round_p99_s']} s (bound "
+        f"{scenario.invariants.round_p99_s}); view changes "
+        f"{m['view_changes']}, NEWVIEWs adopted {m['new_views_adopted']}; "
+        "units " + ", ".join(f"{k} {flushes[k]} ({checks[k]} checks)"
+                             for k in sorted(flushes))
+        + "; units' wall s (median, sum) " + ", ".join(
+            f"{k} {v[len(v) // 2]:.4f}, {sum(v):.3f}"
+            for k, v in sorted(unit_s.items()))
+        + "; launches " + ", ".join(f"{k} {n}" for k, n in made.items() if n)
+        + (f"; leader inbound {inbound} msgs/round" if inbound is not None
+           else "") + (f"; other sheds {shed}" if shed else ""))
+    extra = {k: v for k, v in m.items() if k.startswith((
+        "round_phase_", "byz_", "wan200_", "netem_"))}
+    if extra:
+        log(f"chaos, {name}: " + ", ".join(f"{k} {v}"
+                                           for k, v in extra.items()))
+    return made
+
+
+def chaos_phase(seed):
+    """The port's chaostest on the card (runner.py ``run``): the JAX
+    package's adversarial scenarios view_change_storm (the leader
+    black-holed under an ingress flood, the committee changes view, the
+    ex-leader resyncs), byz_double_voter_slashed (a staked external
+    validator double-votes, every honest validator re-checks the evidence
+    before voting, finalization slashes it) and wan_committee_200 (200
+    slots over four nodes of 50 keys, a WAN matrix of 50-150 ms RTT with
+    0.5% loss, the Handel overlay), each in its quick form, with
+    HARMONY_CHAOS_REAL_KERNELS=1: every vote, quorum proof, seal and
+    slashing evidence the honest nodes check goes through the kernels.
+    Gates, each scenario: passed with no violation; no host fallback, the
+    breaker closed, no consensus shed and no shed for an open breaker; no
+    message dropped for a DeviceError; no twin answer; each quorum kernel
+    launched; every launch accounted for by a unit of device work at its
+    exact launches (chaos_want).  Violation dumps go to the git-ignored
+    chaos_phase_dumps/.  ``seed`` is unused: each scenario carries its
+    own (the JAX package's)."""
+    import os
+    import shutil
+
+    from harmony_tpu_torch import device as D
+
+    del seed
+    card = card_line()
+    check(D.COUNTERS["ref_fallback"] == 0 and D.BREAKER.state == "closed",
+          "before the chaos phase: a host fallback or an open breaker")
+    dumps = Path(__file__).resolve().parent / "chaos_phase_dumps"
+    shutil.rmtree(dumps, ignore_errors=True)
+    dumps.mkdir(parents=True, exist_ok=True)
+    saved = {k: os.environ.get(k) for k in ("HARMONY_CHAOS_REAL_KERNELS",
+                                            "HARMONY_TPU_TRACE_DIR")}
+    os.environ["HARMONY_CHAOS_REAL_KERNELS"] = "1"
+    os.environ["HARMONY_TPU_TRACE_DIR"] = str(dumps)
+    started = time.perf_counter()
+    out = {}
+    try:
+        for name in CHAOS_SCENARIOS:
+            out[name] = chaos_scenario(name, card, dumps)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    total = {k: sum(made[k] for made in out.values()) for k in KERNELS}
+    log(f"[{card}] chaos: {len(out)} scenarios passed on the card in "
+        f"{time.perf_counter() - started:.3f} s; launches "
+        + ", ".join(f"{k} {n}" for k, n in total.items() if n))
+    return {"launches": total}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1673)
@@ -5159,6 +5406,9 @@ def main(argv=None):
     # the node binary: four processes on this card, then its wiring in
     # this process at exact launches, its counts from zero
     boot = boot_phase(args.seed)
+    # the adversarial scenarios on the card with the real kernels, each
+    # one's counts from zero
+    chaos = chaos_phase(args.seed)
 
     def entry(name, source, replaces, op, shape, described, kept,
               counted=path):
@@ -5174,6 +5424,7 @@ def main(argv=None):
             "sync_launches": sync["launches"][name],
             "signing_launches": signing["launches"][name],
             "boot_launches": boot["launches"][name],
+            "chaos_launches": chaos["launches"][name],
             "max_abs_err": stats[name]["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

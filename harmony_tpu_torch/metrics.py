@@ -6,12 +6,11 @@ HTTP /metrics).  The port's copy of the JAX package's ``metrics.py``,
 stdlib only: the primitives (``LockedCounters``, ``Counter``, ``Gauge``,
 ``Histogram``), ``process_sample``, ``Registry`` and ``MetricsServer``.
 
-``Registry.expose`` renders the families of the modules the port has:
+``Registry.expose`` renders the same families as the JAX package's:
 device, resilience, sched, p2p, slash, process, health, governor, prof,
-aot, snapshot and, once ``obs`` is imported, the round-phase and
-replay-stage histograms of ``obs/{timeline,replay}.py``.  The JAX
-package's netem family comes with the chaos harness, which the port does
-not have yet.
+aot, snapshot, and once their modules are imported the netem family of
+``chaostest/netem.py`` and the round-phase and replay-stage histograms
+of ``obs/{timeline,replay}.py``.
 """
 
 from __future__ import annotations
@@ -302,6 +301,9 @@ class Registry:
         lines.append(self._sched_counters())
         lines.append(self._p2p_counters())
         lines.append(self._slash_counters())
+        netem = self._netem_counters()
+        if netem:
+            lines.append(netem)
         lines.append(self._process_gauges())
         lines.append(self._health_metrics())
         lines.append(self._governor_metrics())
@@ -370,6 +372,18 @@ class Registry:
         from . import governor as GV
 
         return GV.expose()
+
+    @staticmethod
+    def _netem_counters() -> str:
+        """Link-conditioning families (chaostest.netem singletons) —
+        only when the netem module was ever imported: production
+        exposition must not pull the chaos framework in."""
+        import sys
+
+        mod = sys.modules.get("harmony_tpu_torch.chaostest.netem")
+        if mod is None:
+            return ""
+        return mod.expose()
 
     @staticmethod
     def _p2p_counters() -> str:

@@ -1,6 +1,7 @@
 """The port stands alone: nothing under harmony_tpu_torch/ and nothing in
 chip_smoke.py or final_exp_parts.py imports JAX or the JAX package
-(harmony_tpu)."""
+(harmony_tpu), nor the ``cryptography`` package, which the card's machine
+lacks."""
 
 import ast
 from pathlib import Path
@@ -14,7 +15,7 @@ SOURCES = sorted((REPO / "harmony_tpu_torch").rglob("*.py")) + [
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "harmony_tpu")
+    return top in ("jax", "jaxlib", "harmony_tpu", "cryptography")
 
 
 def _imports(path: Path):
@@ -41,12 +42,15 @@ def test_no_jax_or_harmony_tpu_import(path):
 
 def test_the_rule_sees_what_it_forbids():
     assert _forbidden("jax.numpy") and _forbidden("harmony_tpu.ref.params")
+    assert _forbidden("cryptography.hazmat.primitives.ciphers")
     assert not _forbidden("harmony_tpu_torch.ops.fp")
-    src = "import jax\nfrom harmony_tpu.ops import fp\nfrom . import fp\n"
+    src = ("import jax\nfrom harmony_tpu.ops import fp\nfrom . import fp\n"
+           "from cryptography.hazmat.primitives import ciphers\n")
     tree = ast.parse(src)
     mods = [n.module if isinstance(n, ast.ImportFrom) else n.names[0].name
             for n in tree.body if getattr(n, "level", 0) == 0]
-    assert [m for m in mods if _forbidden(m)] == ["jax", "harmony_tpu.ops"]
+    assert [m for m in mods if _forbidden(m)] == [
+        "jax", "harmony_tpu.ops", "cryptography.hazmat.primitives"]
 
 
 # The node layer: each module at the JAX package's path.
@@ -65,13 +69,18 @@ NODE_LAYER = (
     "sync", "sync.epoch_feed", "sync.staged", "core.kv_native",
     "keystore", "blsgen_kms", "ntp", "p2p.discovery", "obs.sink",
     "obs.timeline", "hmy", "hmy.facade", "rpc", "rpc.server", "rpc.ws",
-    "explorer", "rosetta", "cli",
+    "explorer", "rosetta", "cli", "ref.constants_gen", "vdf",
+    "vdf_wesolowski", "crypto_vrf_p256", "accounts.keystore_v3",
+    "chaostest.scenario", "chaostest.netem", "chaostest.fixtures",
+    "chaostest.byzantine", "chaostest.runner", "chaostest.scenarios",
+    "chaostest",
 )
 
 
 def test_node_layer_imports_without_jax_or_harmony_tpu():
     """In a fresh interpreter, every module of the node layer imports and
-    neither JAX nor the JAX package is loaded afterwards."""
+    neither JAX, the JAX package nor ``cryptography`` is loaded
+    afterwards."""
     import subprocess
     import sys
 
@@ -80,7 +89,8 @@ def test_node_layer_imports_without_jax_or_harmony_tpu():
         f"for m in {NODE_LAYER!r}:\n"
         "    importlib.import_module('harmony_tpu_torch.' + m)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'harmony_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'harmony_tpu',\n"
+        "                                    'cryptography'))\n"
         "print(repr(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

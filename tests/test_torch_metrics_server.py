@@ -123,10 +123,14 @@ def test_probes_answer_as_the_jax_packages_server():
 
 def test_the_servers_routes():
     """/metrics carries the port's families (p2p, slash and snapshot
-    among them, and the round timeline's once obs is imported; netem
-    waits for its module); /debug/pprof/* and
+    among them, and the round timeline's once obs is imported; netem's
+    once chaostest/netem.py is imported, as in the JAX package);
+    /debug/pprof/* and
     /debug/trace answer; an unknown route is a 404; stopping a server
     that never started is a no-op."""
+    import importlib
+    import sys
+
     from harmony_tpu_torch import aot, obs, sched  # noqa: F401 — families
 
     T_HL.configure(enabled=False)
@@ -159,7 +163,13 @@ def test_the_servers_routes():
                        "harmony_replay_stage_seconds",
                        "harmony_test_total 2"):
             assert family in text, family
-        assert "harmony_netem_" not in text
+        netem = "harmony_tpu_torch.chaostest.netem"
+        if netem not in sys.modules:
+            assert "harmony_netem_" not in text
+            importlib.import_module(netem)
+            status, text = _get(srv.port, "/metrics")
+            text = text.decode()
+        assert status == 200 and "harmony_netem_events_total" in text
         status, body = _get(srv.port, "/debug/pprof/threadz")
         assert status == 200 and b"MainThread" in body
         status, body = _get(srv.port, "/debug/pprof/")
