@@ -162,9 +162,23 @@ Run from the root of a checkout on a machine with one CUDA card.  It
    prints each scenario's seconds, heads, round p50 and p99, view
    changes, round phases, units of device work and launches (violation
    dumps in chaos_phase_dumps/);
-14. prints a JSON line describing each kernel (with its launches on
+14. runs the port's operator tools (harmony_tpu_torch/tools/,
+   tools_phase) on the card at their own configurations: obs_smoke,
+   sched_smoke, loadgen --duration 5 --check, soak --quick --check and
+   chaos_sweep --quick --check over leader_kill_restart and
+   rolling_restart in this process, every launch in a scheduler flush or
+   a masked_pubkey_sum at its exact count; crash_sweep --check over the
+   FileKV and the native KV; round_forensics --check over the boot
+   phase's span files, its phase medians the boot phase's; and in fresh
+   processes compile_surface_smoke (no first use after warmup across a
+   committee-width change) and localnet --nodes 4 --blocks 3
+   --device-path --device-real; each tool's --check, no twin answer, no
+   host fallback, the breaker closed, no message dropped for a
+   DeviceError, no traceback in a child's output; it prints each tool's
+   output line and wall seconds (logs in tools_phase_logs/);
+15. prints a JSON line describing each kernel (with its launches on
    the main path, the consumers, the signing path, the localnet, the
-   sync phase, the node binary and the chaos phase),
+   sync phase, the node binary, the chaos phase and the tools phase),
    then, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line.  Without CUDA,
@@ -5006,6 +5020,9 @@ def boot_phase(seed):
             keep.mkdir(parents=True, exist_ok=True)
             for path in work.glob("*.log"):
                 shutil.copy(path, keep / path.name)
+            # the nodes' span files, for the tools phase's round forensics
+            if (work / "spans").is_dir():
+                shutil.copytree(work / "spans", keep / "spans")
         net_s = time.perf_counter() - started
         solo = boot_solo(work)
     phases = ", ".join(f"{p} {ms:.3f}" for p, ms in net["phase_ms"].items())
@@ -5038,7 +5055,9 @@ def boot_phase(seed):
         f"{BOOT_SOLO_BLOCKS} blocks at {BOOT_BLOCK_LAUNCHES} launches each "
         f"({solo['seconds']:.3f} s); the phase took "
         f"{time.perf_counter() - started:.3f} s (part A {net_s:.3f} s)")
-    return {"launches": solo["launches"], "localnet": net, "solo": solo}
+    return {"launches": solo["launches"], "localnet": net, "solo": solo,
+            "span_files": sorted(str(p) for p in
+                                 (keep / "spans").glob("*.jsonl*"))}
 
 
 # the JAX package's adversarial scenarios, each in its quick form (the
@@ -5153,6 +5172,53 @@ def chaos_accounting():
         Node._handle_verified = handle
 
 
+def lane_sheds():
+    """The scheduler's sheds so far, by (lane, reason)."""
+    from harmony_tpu_torch.sched import Lane
+    from harmony_tpu_torch.sched.scheduler import LANE_NAMES, SHED
+
+    return {(LANE_NAMES[ln], why): SHED.value(lane=LANE_NAMES[ln],
+                                              reason=why)
+            for ln in Lane for why in SHED_REASONS}
+
+
+def check_units(what, rec, made, sums0):
+    """The gates on what ``chaos_accounting`` recorded over a run that
+    launched ``made``: no message dropped for a DeviceError, no twin
+    answer, each quorum kernel launched, and every launch in a unit of
+    device work at that unit's exact launches (``chaos_want``), the
+    masked sums the ones counted since ``sums0``.  Returns the units and
+    the checks in them, by kind."""
+    from harmony_tpu_torch import device as D
+
+    check(not rec["device_drops"], f"{what}: messages dropped for a "
+          f"DeviceError: {rec['device_drops'][:4]}")
+    check(not rec["twin"] and not D.kernel_twin_active(),
+          f"{what}: {len(rec['twin'])} twin answers")
+    for k in PATH_KERNELS:
+        check(made[k] > 0, f"{what}: {k} was never launched")
+    # every launch belongs to a unit of device work, each unit's launches
+    # are exactly its kind's (chaos_want), and the phase's delta is their
+    # sum: the flushes plus one g1_masked_sum per masked_pubkey_sum
+    units = rec["units"]
+    wrong = [(kind, n, dev, got) for kind, n, dev, got in units
+             if dev != "cuda" or got != chaos_want(kind, n)]
+    check(not wrong, f"{what}: {len(wrong)} of {len(units)} units "
+          f"off the card or off their launches, e.g. {wrong[:3]}")
+    sums = sum(1 for kind, _, _, _ in units if kind == "sum")
+    check(sums == D.COUNTERS["masked_pubkey_sum"] - sums0,
+          f"{what}: {sums} masked sums hooked, "
+          f"{D.COUNTERS['masked_pubkey_sum'] - sums0} counted")
+    total = {k: sum(got[k] for _, _, _, got in units) for k in KERNELS}
+    check(made == total, f"{what}: launched {made}, its units "
+          f"account for {total}")
+    flushes = collections.Counter(kind for kind, _, _, _ in units)
+    checks = collections.Counter()
+    for kind, n, _, _ in units:
+        checks[kind] += n
+    return flushes, checks
+
+
 def chaos_scenario(name, card, dumps):
     """One scenario of CHAOS_SCENARIOS (quick) through the port's
     chaostest.run on the card, its launch counts from zero, held to its
@@ -5160,23 +5226,17 @@ def chaos_scenario(name, card, dumps):
     from harmony_tpu_torch import device as D
     from harmony_tpu_torch.chaostest import run
     from harmony_tpu_torch.chaostest.scenarios import SCENARIOS
-    from harmony_tpu_torch.sched import Lane
-    from harmony_tpu_torch.sched.scheduler import LANE_NAMES, SHED
-
-    def sheds():
-        return {(LANE_NAMES[ln], why): SHED.value(lane=LANE_NAMES[ln],
-                                                  reason=why)
-                for ln in Lane for why in SHED_REASONS}
 
     scenario = SCENARIOS[name](quick=True)
-    sheds0, sums0 = sheds(), D.COUNTERS["masked_pubkey_sum"]
+    sheds0, sums0 = lane_sheds(), D.COUNTERS["masked_pubkey_sum"]
     reset_launches()
     t0 = time.perf_counter()
     with chaos_accounting() as rec:
         result = run(scenario)
     wall = time.perf_counter() - t0
     made = launches()
-    shed = {k: n - sheds0[k] for k, n in sheds().items() if n > sheds0[k]}
+    shed = {k: n - sheds0[k] for k, n in lane_sheds().items()
+            if n > sheds0[k]}
     m = {k: v["value"] for k, v in result.metrics.items()}
     if not result.passed:
         log(f"chaos, {name}: violations {result.violations}; dumps: "
@@ -5195,31 +5255,7 @@ def chaos_scenario(name, card, dumps):
         f"chaos, {name}: consensus sheds {shed}")
     check(not any(why == "breaker_open" for _, why in shed),
           f"chaos, {name}: sheds for an open breaker {shed}")
-    check(not rec["device_drops"], f"chaos, {name}: messages dropped for a "
-          f"DeviceError: {rec['device_drops'][:4]}")
-    check(not rec["twin"] and not D.kernel_twin_active(),
-          f"chaos, {name}: {len(rec['twin'])} twin answers")
-    for k in PATH_KERNELS:
-        check(made[k] > 0, f"chaos, {name}: {k} was never launched")
-    # every launch belongs to a unit of device work, each unit's launches
-    # are exactly its kind's (chaos_want), and the phase's delta is their
-    # sum: the flushes plus one g1_masked_sum per masked_pubkey_sum
-    units = rec["units"]
-    wrong = [(kind, n, dev, got) for kind, n, dev, got in units
-             if dev != "cuda" or got != chaos_want(kind, n)]
-    check(not wrong, f"chaos, {name}: {len(wrong)} of {len(units)} units "
-          f"off the card or off their launches, e.g. {wrong[:3]}")
-    sums = sum(1 for kind, _, _, _ in units if kind == "sum")
-    check(sums == D.COUNTERS["masked_pubkey_sum"] - sums0,
-          f"chaos, {name}: {sums} masked sums hooked, "
-          f"{D.COUNTERS['masked_pubkey_sum'] - sums0} counted")
-    total = {k: sum(got[k] for _, _, _, got in units) for k in KERNELS}
-    check(made == total, f"chaos, {name}: launched {made}, its units "
-          f"account for {total}")
-    flushes = collections.Counter(kind for kind, _, _, _ in units)
-    checks = collections.Counter()
-    for kind, n, _, _ in units:
-        checks[kind] += n
+    flushes, checks = check_units(f"chaos, {name}", rec, made, sums0)
     inbound = m.get("leader_inbound_msgs_per_round")
     unit_s = {k: sorted(t for kind, t in rec["unit_s"] if kind == k)
               for k in flushes}
@@ -5296,6 +5332,258 @@ def chaos_phase(seed):
         f"{time.perf_counter() - started:.3f} s; launches "
         + ", ".join(f"{k} {n}" for k, n in total.items() if n))
     return {"launches": total}
+
+
+# the operator tools at their own configurations (four nodes of one key,
+# check.sh's arguments): mainnet width stays with the earlier phases
+TOOLS_CRASH_STRIDE = 4  # the crash sweep's byte stride (check.sh's is 1)
+TOOLS_RESTARTS = ("leader_kill_restart", "rolling_restart")
+TOOLS_LOCALNET = ("--nodes", "4", "--blocks", "3", "--device-path",
+                  "--device-real")
+TOOLS_CHILD_S = 300.0  # a child tool's time limit
+
+
+def run_tool(name, *argv):
+    """``harmony_tpu_torch.tools.<name>.main(argv)`` in this process, its
+    standard output captured: (rc, output, wall s).  A SystemExit is a
+    failure, its message the output's last line."""
+    import importlib
+    import io
+
+    tool = importlib.import_module(f"harmony_tpu_torch.tools.{name}")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        try:
+            rc = tool.main(list(argv))
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else 1
+            if e.code is not None and not isinstance(e.code, int):
+                print(e.code)
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def last_json(out):
+    """The last JSON object line of a tool's output."""
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    check(lines, f"no JSON line in:\n{out[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def accounted_tool(name, card, *argv):
+    """One in-process tool on the card, its launch counts, the tracer's
+    spans and the fill counter from zero, under ``chaos_accounting``:
+    its rc 0 (its own checks), every launch in a unit of device work (a
+    scheduler flush or a masked_pubkey_sum) at that unit's exact
+    launches (``chaos_want``), each quorum kernel
+    launched, no twin answer, no message dropped for a DeviceError, no
+    host fallback, the breaker closed, no consensus shed and no shed for
+    an open breaker.  Returns (launches, output, wall s, the other sheds
+    it made: INGRESS and SYNC under its floods, which its checks allow)."""
+    from harmony_tpu_torch import device as D
+    from harmony_tpu_torch import trace
+    from harmony_tpu_torch.sched.scheduler import FILL
+
+    # what a tool reads of its process (the tracer's spans, the fill
+    # ratio on /metrics) starts empty, as in the tool's own process
+    trace.reset()
+    FILL["items"] = FILL["slots"] = 0
+    sheds0, sums0 = lane_sheds(), D.COUNTERS["masked_pubkey_sum"]
+    reset_launches()
+    with chaos_accounting() as rec:
+        rc, out, wall = run_tool(name, *argv)
+    made = launches()
+    shed = {k: n - sheds0[k] for k, n in lane_sheds().items()
+            if n > sheds0[k]}
+    check(rc == 0, f"tools, {name}: rc {rc}:\n{out[-4000:]}")
+    check(D.COUNTERS["ref_fallback"] == 0,
+          f"tools, {name}: {D.COUNTERS['ref_fallback']} checks fell back "
+          "to the host path")
+    check(D.BREAKER.state == "closed",
+          f"tools, {name}: the device breaker is {D.BREAKER.state}")
+    check(not any(lane == "consensus" or why == "breaker_open"
+                  for lane, why in shed),
+          f"tools, {name}: consensus or open-breaker sheds {shed}")
+    flushes, checks = check_units(f"tools, {name}", rec, made, sums0)
+    log(f"[{card}] tools, {name} {' '.join(argv)}: passed in {wall:.3f} s; "
+        "units " + ", ".join(f"{k} {flushes[k]} ({checks[k]} checks)"
+                             for k in sorted(flushes))
+        + "; launches " + ", ".join(f"{k} {n}" for k, n in made.items() if n)
+        + (f"; other sheds {shed}" if shed else ""))
+    return made, out, wall, sum(shed.values())
+
+
+def child_tool(name, card, logs, *argv):
+    """One tool in a fresh process (``python -m
+    harmony_tpu_torch.tools.<name>``): rc 0 and no traceback in its
+    output; (output, wall s)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"harmony_tpu_torch.tools.{name}", *argv],
+        capture_output=True, text=True, timeout=TOOLS_CHILD_S,
+        cwd=Path(__file__).resolve().parent)
+    wall = time.perf_counter() - t0
+    (logs / f"{name}.out").write_text(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f"tools, {name}: rc {proc.returncode}:\n"
+          f"{(proc.stdout + proc.stderr)[-4000:]}")
+    check("Traceback" not in proc.stdout + proc.stderr,
+          f"tools, {name}: a traceback in its output ({logs / name}.out)")
+    log(f"[{card}] tools, {name} {' '.join(argv)}: rc 0 in {wall:.3f} s")
+    return proc.stdout, wall
+
+
+def tools_phase(seed, boot):
+    """The port's operator tools (``harmony_tpu_torch/tools/``) on the card
+    with the real kernels, each at its own configuration (the JAX
+    package's operators' four nodes of one key and check.sh's arguments;
+    mainnet width stays with the localnet, sync, boot and chaos phases).
+    In this process, each under ``accounted_tool``: obs_smoke (one traced
+    round, seals through the sidecar; /metrics and /debug/trace valid),
+    sched_smoke (rounds, replay and an ingress flood through one
+    scheduler: fill ratio above its floor, no consensus shed), loadgen
+    --duration 5 --check (1,500 transfers/s, floor 1,000, 20 proofs of
+    possession/s, 4 nodes, 2 rounds), soak --quick --check (22 s at 300
+    tx/s, 4 rounds; the slopes of RSS, fds, threads, queue and pool in
+    their bounds) and chaos_sweep --quick --check over TOOLS_RESTARTS
+    (the chaos phase's hooks and HARMONY_CHAOS_REAL_KERNELS=1): each
+    passes its own --check with every launch accounted for.  crash_sweep
+    --check at stride TOOLS_CRASH_STRIDE (the FileKV's kv.commit points,
+    byte truncations, the native KV's parity; storage only, no launch):
+    no failure.  round_forensics --check over the boot phase's span
+    files: each phase's median over its committed rounds equals the boot
+    phase's ``phase_ms`` (to the report's 1e-6 s).  In fresh processes:
+    compile_surface_smoke (no first use after warmup across the width
+    change 5 -> 12) and localnet TOOLS_LOCALNET (a bootnode and four
+    node processes checking on the card, no twin and no host fallback on
+    any /metrics).  No traceback in any child's output; node_clean
+    after.  ``seed`` is unused: each tool carries its own keys."""
+    import os
+    import shutil
+    import statistics
+
+    from harmony_tpu_torch import device as D
+    from harmony_tpu_torch import obs, sched
+    from harmony_tpu_torch.sched.scheduler import SHED
+
+    del seed
+    card = card_line()
+    check(D.COUNTERS["ref_fallback"] == 0 and D.BREAKER.state == "closed",
+          "before the tools phase: a host fallback or an open breaker")
+    logs = Path(__file__).resolve().parent / "tools_phase_logs"
+    shutil.rmtree(logs, ignore_errors=True)
+    logs.mkdir(parents=True)
+    sheds0 = SHED.total()
+    started = time.perf_counter()
+    out = {"launches": {k: 0 for k in KERNELS}, "seconds": {}, "sheds": 0}
+
+    def add(name, made, wall, sheds):
+        out["seconds"][name] = wall
+        out["sheds"] += sheds
+        for k, n in made.items():
+            out["launches"][k] += n
+
+    made, text, wall, sheds = accounted_tool("obs_smoke", card)
+    log("tools, obs_smoke: " + " | ".join(
+        ln for ln in text.splitlines() if ln.startswith("obs_smoke:")))
+    add("obs_smoke", made, wall, sheds)
+    made, text, wall, sheds = accounted_tool("sched_smoke", card)
+    log("tools, sched_smoke: " + " | ".join(
+        ln for ln in text.splitlines() if ln.startswith("sched_smoke:")))
+    add("sched_smoke", made, wall, sheds)
+    made, text, wall, sheds = accounted_tool("loadgen", card, "--duration",
+                                              "5", "--check")
+    load = last_json(text)
+    check(all(load["meta"]["checks"].values()), f"loadgen: {load['meta']}")
+    log(f"tools, loadgen: {json.dumps(load)}")
+    add("loadgen", made, wall, sheds)
+    made, text, wall, sheds = accounted_tool("soak", card, "--quick",
+                                              "--check")
+    soak = last_json(text)
+    check(all(soak["meta"]["checks"].values()), f"soak: {soak['meta']}")
+    log(f"tools, soak: {json.dumps(soak)}")
+    add("soak", made, wall, sheds)
+
+    saved = {k: os.environ.get(k) for k in ("HARMONY_CHAOS_REAL_KERNELS",
+                                            "HARMONY_TPU_TRACE_DIR")}
+    os.environ["HARMONY_CHAOS_REAL_KERNELS"] = "1"
+    os.environ["HARMONY_TPU_TRACE_DIR"] = str(logs / "chaos_dumps")
+    try:
+        argv = ["--quick", "--check"]
+        for name in TOOLS_RESTARTS:
+            argv += ["--scenario", name]
+        made, text, wall, sheds = accounted_tool("chaos_sweep", card,
+                                                  *argv)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    sweep = last_json(text)
+    check(sweep["value"] == len(TOOLS_RESTARTS)
+          and not sweep["meta"]["violations"], f"chaos_sweep: {sweep['meta']}")
+    log(f"tools, chaos_sweep: {json.dumps(sweep)}")
+    add("chaos_sweep", made, wall, sheds)
+
+    reset_launches()
+    rc, text, wall = run_tool("crash_sweep", "--check", "--stride",
+                              str(TOOLS_CRASH_STRIDE))
+    crash = last_json(text)
+    check(rc == 0 and not crash["meta"]["failures"],
+          f"crash_sweep: rc {rc}, {crash['meta']}")
+    check(not any(launches().values()), "crash_sweep launched a kernel")
+    log(f"[{card}] tools, crash_sweep --check --stride {TOOLS_CRASH_STRIDE}: "
+        f"passed in {wall:.3f} s: {json.dumps(crash)}")
+    out["seconds"]["crash_sweep"] = wall
+
+    # round forensics over the boot phase's span files
+    report_path = logs / "round_forensics.json"
+    rc, text, wall = run_tool("round_forensics", *boot["span_files"],
+                              "--check", "--out", str(report_path))
+    check(rc == 0, f"round_forensics: rc {rc}:\n{text[-2000:]}")
+    report = json.loads(report_path.read_text())
+    rounds = [r for r in report["rounds"] if r["committed"]]
+    want = boot["localnet"]["phase_ms"]
+    got = {p: 1e3 * statistics.median(r["phases"].get(p, 0.0)
+                                      for r in rounds) for p in obs.PHASES}
+    check(len(rounds) == boot["localnet"]["rounds"]
+          and all(abs(got[p] - want[p]) <= 1e-3 for p in obs.PHASES),
+          f"round_forensics: {len(rounds)} rounds, medians {got} (ms); the "
+          f"boot phase's {boot['localnet']['rounds']}, {want}")
+    agg = report["aggregate"]
+    log(f"[{card}] tools, round_forensics --check over the boot phase's "
+        f"{len(boot['span_files'])} span files: passed in {wall:.3f} s; "
+        f"{agg['rounds']} committed rounds, {agg['attributed_fraction']} "
+        f"attributed, dominant phase {agg['dominant_phase']}; phase medians "
+        "(ms) " + ", ".join(f"{p} {got[p]:.3f}" for p in obs.PHASES)
+        + ", the boot phase's to 0.001 ms")
+    out["seconds"]["round_forensics"] = wall
+
+    sched.reset()
+    text, wall = child_tool("compile_surface_smoke", card, logs)
+    check("0 post-warmup compiles" in text and "mode=cuda" in text,
+          f"compile_surface_smoke: {text[-2000:]}")
+    log("tools, compile_surface_smoke: " + text.strip().splitlines()[-1])
+    out["seconds"]["compile_surface_smoke"] = wall
+    data = logs / "localnet"
+    text, wall = child_tool("localnet", card, logs, *TOOLS_LOCALNET,
+                            "--data-dir", str(data))
+    check("localnet OK" in text and "device-path checks per node" in text,
+          f"localnet: {text[-2000:]}")
+    for path in sorted(data.glob("*.log")):
+        check("Traceback" not in path.read_text(errors="replace"),
+              f"localnet, {path.name}: a traceback")
+    log("tools, localnet: " + " | ".join(text.strip().splitlines()[-3:]))
+    out["seconds"]["localnet"] = wall
+
+    node_clean("the tools phase", sheds=sheds0 + out["sheds"])
+    log(f"[{card}] tools: 9 tools passed on the card in "
+        f"{time.perf_counter() - started:.3f} s ("
+        + ", ".join(f"{k} {s:.3f}" for k, s in out["seconds"].items())
+        + " s); launches " + ", ".join(f"{k} {n}" for k, n in
+                                     out["launches"].items() if n)
+        + f"; {out['sheds']:g} INGRESS and SYNC sheds under the floods")
+    return out
 
 
 def main(argv=None):
@@ -5409,6 +5697,8 @@ def main(argv=None):
     # the adversarial scenarios on the card with the real kernels, each
     # one's counts from zero
     chaos = chaos_phase(args.seed)
+    # the operator tools on the card, the in-process ones' counts from zero
+    tools = tools_phase(args.seed, boot)
 
     def entry(name, source, replaces, op, shape, described, kept,
               counted=path):
@@ -5425,6 +5715,7 @@ def main(argv=None):
             "signing_launches": signing["launches"][name],
             "boot_launches": boot["launches"][name],
             "chaos_launches": chaos["launches"][name],
+            "tools_launches": tools["launches"][name],
             "max_abs_err": stats[name]["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

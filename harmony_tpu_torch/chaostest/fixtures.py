@@ -147,7 +147,8 @@ def overload_transfers(ecdsa_keys, *, depth: int = 80,
                        to_byte: int = 0x2e):
     """Funded-sender transfers, ``depth`` nonces deep per sender — the
     cycling overload/steady-state flood fixture (shared by
-    the overload_storm scenario and tools/soak.py so the two harnesses
+    the overload_storm scenario and harmony_tpu_torch.tools.soak so the
+    two harnesses
     cannot silently diverge in the load they generate).  Depth must
     exceed the per-sender executable tier so a cycling flood can
     genuinely fill a pool's queue slots."""

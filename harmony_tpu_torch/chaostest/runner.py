@@ -1143,6 +1143,9 @@ def run(scenario: Scenario, registry=None) -> ScenarioResult:
 
     registry = registry or MetricsRegistry()
     real = os.environ.get("HARMONY_CHAOS_REAL_KERNELS") == "1"
+    # a caller's own forcing of the path (the operator tools' --cpu)
+    # comes back after the run
+    prev_path = (DV._FORCED, DV._NODE_DEVICE)
     if real:
         # the real kernels run on the card only: the node's device
         # resolves to CUDA, which raises without one, before anything
@@ -1182,8 +1185,10 @@ def run(scenario: Scenario, registry=None) -> ScenarioResult:
 
     replay_base = obs_replay.snapshot()
     # the node's checks run on the card where there is one, else on the
-    # CPU through the twins
-    on_card = real or torch.cuda.is_available()
+    # CPU through the twins; a caller that put them on the CPU keeps
+    # them there
+    caller_cpu = prev_path[1] is not None and prev_path[1].type == "cpu"
+    on_card = real or (not caller_cpu and torch.cuda.is_available())
     DV.use_device(True, device=None if on_card else "cpu")
     sheds_before = _consensus_sheds()
     fi_points = ("device.dispatch", "sidecar.call", "sidecar.frame",
@@ -1382,7 +1387,7 @@ def run(scenario: Scenario, registry=None) -> ScenarioResult:
         # for the host process (pytest or the sweep CLI); the next
         # scenario/caller re-creates it lazily
         sched.reset()
-        DV.use_device(None)
+        DV.use_device(*prev_path)
         if prev_twin is None:
             os.environ.pop("HARMONY_KERNEL_TWIN", None)
         else:

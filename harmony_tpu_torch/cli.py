@@ -61,8 +61,9 @@ DEFAULTS = {
     "beacon_sync_peer": None,
     "sync_peers": [],     # "host:port" sync stream servers
     "bls_keys": [],       # [{"path": ..., "passphrase_file": ...}]
-    # dev-genesis knobs (tools/localnet.py): committee size + which
-    # single dev key THIS process holds (None = all of them)
+    # dev-genesis knobs (python -m harmony_tpu_torch.tools.localnet):
+    # committee size + which single dev key THIS process holds (None =
+    # all of them)
     "dev_keys": None,
     "dev_key_index": None,
     "in_memory": False,
@@ -99,7 +100,8 @@ DEFAULTS = {
     "trace_slo": None,     # round-latency SLO seconds (None = off)
     "trace_dir": None,     # dump dir ($HARMONY_TPU_TRACE_DIR/<tmp>)
     "span_sink_dir": None,  # durable JSONL span export (implies trace;
-    # merge the per-node files with tools/round_forensics.py)
+    # merge the per-node files with
+    # python -m harmony_tpu_torch.tools.round_forensics)
     # startup AOT warmup: run every compile-manifest program once on
     # the card (aot.py's pinned shape set) before the node serves, so
     # no serving path ever pays a kernel's first launch.  False only for
@@ -634,7 +636,8 @@ def main(argv=None):
     p.add_argument("--span-sink-dir", dest="span_sink_dir",
                    help="durable span export: write every finished "
                         "span as JSONL under this directory (implies "
-                        "--trace; analyze with tools/round_forensics.py)")
+                        "--trace; analyze with python -m "
+                        "harmony_tpu_torch.tools.round_forensics)")
     p.add_argument("--device-verify", dest="device_verify",
                    action="store_const", const=True, default=None,
                    help="force the card's verification path (fails "

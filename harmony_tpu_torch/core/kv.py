@@ -37,7 +37,8 @@ every write).  IO is UNBUFFERED so crash modeling is honest: every
 
 Crash-point injection: the batch commit path fires the
 ``kv.commit`` faultinject point (key = the store's path) before every
-record and marker write — ``tools/crash_sweep.py`` enumerates these
+record and marker write —
+``python -m harmony_tpu_torch.tools.crash_sweep`` enumerates these
 points and kills the write at each one.  A failed batch write (fault
 or real IO error) self-heals by truncating back to the batch start,
 so a LIVE store never leaves torn bytes ahead of its append position.

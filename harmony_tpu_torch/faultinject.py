@@ -32,7 +32,8 @@ Wired injection points:
     kv.commit        — core/kv.py FileKV.write_batch (key = the store's
                        path): before the BEGIN marker, before every
                        record, before the COMMIT marker — the storage
-                       crash-point matrix tools/crash_sweep.py walks
+                       crash-point matrix that ``python -m
+                       harmony_tpu_torch.tools.crash_sweep`` walks
 
 Always ``reset()`` in test teardown: the registry is process-global.
 

@@ -1065,6 +1065,16 @@ class Node:
         self.validator.cfg.payload_view_id = block.header.view_id
         if not self._round_keys:
             return  # observer this epoch: follow, never vote
+        if self.in_view_change:
+            # port-only: a VIEWCHANGE vote is the promise to leave this
+            # view, so no vote in it follows (see _on_prepared); the
+            # block stays pending, so a COMMITTED for it from the others
+            # still inserts it here without a sync
+            self.log.debug(
+                "prepare vote withheld: leaving this view",
+                view=self.view_id, block=msg.block_num,
+            )
+            return
         # durable double-sign guard, written BEFORE the vote leaves:
         # survives a hard kill where _announce_voted does not
         if not self.safety.record(
@@ -1436,6 +1446,14 @@ class Node:
             return
         if not self._round_keys:
             return  # observer: cannot cast a commit vote
+        if self.in_view_change:
+            # port-only: a node that has voted to leave this view casts
+            # no commit vote in it.  The JAX package's node does, and a
+            # NEWVIEW built from view-change votes sent before PREPARED
+            # carries no block, so the old view's leader could commit
+            # one block at this height and the new view another (a fork
+            # of the chain, seen in the rolling_restart chaos scenario)
+            return
         vote = self.validator.on_prepared(msg)
         if vote is not None:
             # record the view the commit payload BINDS (a re-proposal

@@ -1,6 +1,7 @@
 """The port stands alone: nothing under harmony_tpu_torch/ and nothing in
 chip_smoke.py or final_exp_parts.py imports JAX or the JAX package
-(harmony_tpu), nor the ``cryptography`` package, which the card's machine
+(harmony_tpu), nor the JAX package's operator tools (the top-level
+``tools``), nor the ``cryptography`` package, which the card's machine
 lacks."""
 
 import ast
@@ -15,7 +16,7 @@ SOURCES = sorted((REPO / "harmony_tpu_torch").rglob("*.py")) + [
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "harmony_tpu", "cryptography")
+    return top in ("jax", "jaxlib", "harmony_tpu", "cryptography", "tools")
 
 
 def _imports(path: Path):
@@ -43,7 +44,9 @@ def test_no_jax_or_harmony_tpu_import(path):
 def test_the_rule_sees_what_it_forbids():
     assert _forbidden("jax.numpy") and _forbidden("harmony_tpu.ref.params")
     assert _forbidden("cryptography.hazmat.primitives.ciphers")
+    assert _forbidden("tools.obs_smoke") and _forbidden("tools")
     assert not _forbidden("harmony_tpu_torch.ops.fp")
+    assert not _forbidden("harmony_tpu_torch.tools.obs_smoke")
     src = ("import jax\nfrom harmony_tpu.ops import fp\nfrom . import fp\n"
            "from cryptography.hazmat.primitives import ciphers\n")
     tree = ast.parse(src)
@@ -122,3 +125,58 @@ def test_node_layer_mirrors_the_jax_packages_names(module):
     port = _public(_source("harmony_tpu_torch", module))
     want = _public(_source("harmony_tpu", module))
     assert want <= port, sorted(want - port)
+
+
+# The operator tools: each the JAX package's tools/<name>.py.
+TOOLS = ("obs_smoke", "sched_smoke", "compile_surface_smoke", "loadgen",
+         "soak", "crash_sweep", "chaos_sweep", "round_forensics",
+         "localnet")
+
+
+def test_the_tools_import_alone_and_set_nothing():
+    """In a fresh interpreter every tool imports; none loads JAX, the JAX
+    package, its tools or ``cryptography``, and none changes the
+    environment or ``sys.path`` at import."""
+    import subprocess
+    import sys
+
+    code = (
+        "import importlib, os, sys\n"
+        "env, path = dict(os.environ), list(sys.path)\n"
+        "importlib.import_module('harmony_tpu_torch.tools')\n"
+        f"for m in {TOOLS!r}:\n"
+        "    importlib.import_module('harmony_tpu_torch.tools.' + m)\n"
+        "assert dict(os.environ) == env, set(os.environ) ^ set(env)\n"
+        "assert sys.path == path, sys.path\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'harmony_tpu',\n"
+        "                                    'cryptography', 'tools'))\n"
+        "print(repr(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def _flags(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), str(path))
+    return {a.value for n in ast.walk(tree) if isinstance(n, ast.Call)
+            and getattr(n.func, "attr", "") == "add_argument"
+            for a in n.args if isinstance(a, ast.Constant)
+            and str(a.value).startswith("-")}
+
+
+@pytest.mark.parametrize("tool", TOOLS)
+def test_each_tool_keeps_the_jax_tools_names_and_flags(tool):
+    """The same public names and flags as the JAX package's tool; the
+    port adds ``--cpu`` (the twins off the card) and nothing else."""
+    port = REPO / "harmony_tpu_torch" / "tools" / f"{tool}.py"
+    jax = REPO / "tools" / f"{tool}.py"
+    assert _public(jax) <= _public(port), sorted(_public(jax) - _public(port))
+    text = port.read_text(encoding="utf-8")
+    # --cpu comes from the package's add_cpu_flag: every tool but the
+    # storage sweep, which checks no signature
+    cpu = {"--cpu"} if "add_cpu_flag(" in text else set()
+    assert bool(cpu) == (tool != "crash_sweep")
+    assert _flags(port) | cpu == _flags(jax) | cpu
+    assert "sys.path.insert" not in text and "os.environ[" not in text
